@@ -1,0 +1,158 @@
+// Shared device helpers for the hand-written Hopper kernels of the
+// humanoid step (smooth.cu, solver.cu).
+//
+// Layout: one thread per environment, batch-last. Every per-env array
+// (inputs, outputs, scratch) is stored [..., B], so element i of env e
+// lives at p[i * B + e] and the 32 threads of a warp touch 32
+// neighbouring floats. `In` / `Out` are such strided views, already
+// offset to one environment.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace hm {
+
+struct In {
+  const float* p;
+  int B;
+  __device__ __forceinline__ float operator[](int i) const {
+    return __ldg(p + (size_t)i * B);
+  }
+};
+
+struct Out {
+  float* p;
+  int B;
+  __device__ __forceinline__ float& operator[](int i) const {
+    return p[(size_t)i * B];
+  }
+};
+
+// Carve consecutive batch-last regions out of one scratch buffer.
+struct Carver {
+  float* base;
+  int B;
+  size_t off;
+  __device__ __forceinline__ Out take(int n) {
+    Out o{base + off * B, B};
+    off += (size_t)n;
+    return o;
+  }
+};
+
+// max that keeps a NaN in its first argument (jnp.maximum semantics for
+// the clamp pattern max(x, eps)): a diverged state must stay NaN so the
+// step's divergence guard sees it.
+__device__ __forceinline__ float mx(float a, float b) {
+  return (a != a) ? a : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float clipf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+struct V3 {
+  float x, y, z;
+};
+struct Q4 {
+  float w, x, y, z;
+};
+
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 operator*(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+
+__device__ __forceinline__ Q4 qmul(Q4 a, Q4 b) {
+  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
+          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
+          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
+          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
+}
+
+// v + w t + qv × t with t = 2 qv × v (math.quat_rotate)
+__device__ __forceinline__ V3 qrot(Q4 q, V3 v) {
+  V3 qv{q.x, q.y, q.z};
+  V3 t = cross(qv, v) * 2.0f;
+  return v + t * q.w + cross(qv, t);
+}
+
+__device__ __forceinline__ Q4 qnormalize(Q4 q) {
+  float n = sqrtf(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z);
+  float inv = 1.0f / mx(n, 1e-9f);
+  return {q.w * inv, q.x * inv, q.y * inv, q.z * inv};
+}
+
+// columns of the rotation matrix of q (math.quat_to_mat)
+__device__ __forceinline__ void qcols(Q4 q, V3& c0, V3& c1, V3& c2) {
+  float xx = q.x * q.x, yy = q.y * q.y, zz = q.z * q.z;
+  float xy = q.x * q.y, xz = q.x * q.z, yz = q.y * q.z;
+  float wx = q.w * q.x, wy = q.w * q.y, wz = q.w * q.z;
+  c0 = {1 - 2 * (yy + zz), 2 * (xy + wz), 2 * (xz - wy)};
+  c1 = {2 * (xy - wz), 1 - 2 * (xx + zz), 2 * (yz + wx)};
+  c2 = {2 * (xz + wy), 2 * (yz - wx), 1 - 2 * (xx + yy)};
+}
+
+template <class View>
+__device__ __forceinline__ V3 ld3(const View& v, int i) {
+  return {v[i], v[i + 1], v[i + 2]};
+}
+template <class View>
+__device__ __forceinline__ Q4 ld4(const View& v, int i) {
+  return {v[i], v[i + 1], v[i + 2], v[i + 3]};
+}
+__device__ __forceinline__ void st3(const Out& v, int i, V3 a) {
+  v[i] = a.x;
+  v[i + 1] = a.y;
+  v[i + 2] = a.z;
+}
+__device__ __forceinline__ void st4(const Out& v, int i, Q4 a) {
+  v[i] = a.w;
+  v[i + 1] = a.x;
+  v[i + 2] = a.y;
+  v[i + 3] = a.z;
+}
+
+// shared (not per-env) parameters: plain arrays read by every thread
+__device__ __forceinline__ float pf(const float* p, int i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ V3 pv3(const float* p, int i) {
+  return {__ldg(p + i), __ldg(p + i + 1), __ldg(p + i + 2)};
+}
+__device__ __forceinline__ Q4 pq4(const float* p, int i) {
+  return {__ldg(p + i), __ldg(p + i + 1), __ldg(p + i + 2), __ldg(p + i + 3)};
+}
+
+// MuJoCo solimp sigmoid (solver.impedance)
+__device__ __forceinline__ float impedance(float viol, float dmin, float dmax,
+                                           float width) {
+  float x = clipf(viol / mx(width, 1e-9f), 0.0f, 1.0f);
+  float y = x < 0.5f ? 2.0f * x * x : 1.0f - 2.0f * (1.0f - x) * (1.0f - x);
+  return dmin + y * (dmax - dmin);
+}
+
+// (k, b) from solref / solimp with timeconst >= 2 dt (solver._kb)
+__device__ __forceinline__ void solref_kb(float tc, float dr, float dmax,
+                                          float d, float dt, float& k,
+                                          float& b) {
+  tc = fmaxf(tc, 2.0f * dt);
+  b = 2.0f / fmaxf(dmax * tc, 1e-9f);
+  k = d / fmaxf(dmax * dmax * tc * tc * dr * dr, 1e-12f);
+}
+
+}  // namespace hm

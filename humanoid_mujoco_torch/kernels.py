@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each kernel source has a plain C entry point. At first use it is
+compiled with `nvcc` for `sm_90a` into a shared library under
+`build/kernels/` at the root of the checkout (listed in .gitignore),
+named by a hash of the sources and flags, and loaded with `ctypes`.
+Nothing here runs when the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every pointer and the stream as c_void_p, ints as c_int
+SIGNATURES = {
+    "smooth": ("hm_smooth",
+               [_P, _P, _P, _P, _I] + [_P] * 10 + [_P] * 13 + [_I, _P]),
+    "solver": ("hm_solve",
+               [_P] * 18 + [_P] * 4 + [_P] * 5 + [_I] * 6 + [_P]),
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append(shutil.which("nvcc") or "")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit's nvcc at first use")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> None:
+    """Compile the named kernels that are not built yet, one nvcc process
+    per source, all started together."""
+    todo = [(n, _target(n)) for n in names if not _target(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, so in todo:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for name, so, tmp, proc in procs:
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel `name`'s C entry on the current stream; raise on a
+    launch error (the entry returns cudaGetLastError())."""
+    import torch
+    lib = load(name)
+    fn_name, _ = SIGNATURES[name]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: "
+                           f"cudaError {err}")

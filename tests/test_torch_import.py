@@ -1,0 +1,67 @@
+"""The port stands alone: no module of humanoid_mujoco_torch, and not
+chip_smoke.py, imports JAX or the JAX package. tests/test_torch_port.py
+runs these checks as the port's one collected test."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "humanoid_mujoco_tpu")
+
+
+def port_sources():
+    files = sorted((ROOT / "humanoid_mujoco_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def check_importing_the_port_loads_no_jax():
+    """A fresh interpreter (isolated from the environment's path hooks)
+    imports every module of the port and chip_smoke.py, then reports
+    which forbidden modules it loaded."""
+    code = f"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {str(ROOT)!r})
+import humanoid_mujoco_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {FORBIDDEN!r})
+print(json.dumps([len(names), bad]))
+"""
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    count, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert count >= 17, out.stdout
+    assert bad == [], bad
+
+
+def check_no_source_file_imports_jax():
+    for path in port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+
+
+def run_checks():
+    check_no_source_file_imports_jax()
+    check_importing_the_port_loads_no_jax()

@@ -1,0 +1,47 @@
+"""The PyTorch port's CPU parity suite, as one collected test.
+
+The checks live in the other tests/test_torch_*.py modules: math and
+ops, the model, the twins of the two CUDA kernels, the step, rollouts
+and the sampling planner, each against the JAX package on the same
+numpy-seeded inputs, and the port's import isolation. This test runs
+them all. The kernels themselves are checked on the card by
+chip_smoke.py.
+
+One item on purpose: the tier-1 command runs pytest-xdist with
+`--dist load` against a time limit, xdist sizes its chunks from the
+number of collected items, and more than one added item moves the
+seed's 500-3000 s tests onto other workers (ROADMAP.md, "Keep the count
+of collected test items small").
+
+The two slow JAX references (the jitted sampling plan, about 40 s, and
+the eager kernel-path step, about 22 s) are built in two more threads
+while the other checks run: XLA compiles outside the GIL, and JAX keeps
+`disable_jit` per thread. Both are cached, so the checks that read them
+reuse the result.
+"""
+
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+import test_torch_fused_smooth
+import test_torch_import
+import test_torch_math
+import test_torch_model
+import test_torch_rollout
+import test_torch_step
+
+torch.set_num_threads(1)
+
+
+def test_port_matches_jax():
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        plan = pool.submit(test_torch_rollout.jax_plan)
+        composition = pool.submit(test_torch_step.jax_composition)
+        for module in (test_torch_math, test_torch_model, test_torch_import,
+                       test_torch_fused_smooth):
+            module.run_checks()
+        composition.result()
+        test_torch_step.run_checks()
+        plan.result()
+    test_torch_rollout.run_checks()
