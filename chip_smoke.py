@@ -4,15 +4,24 @@ Run from the root of the repository:
 
     python3 chip_smoke.py
 
-It builds the two CUDA kernels of the humanoid step (csrc/smooth.cu and
-csrc/solver.cu, with nvcc for sm_90a), holds each kernel and the whole
-step against the plain PyTorch twins on the card, drives the port's main
-path (the 1024 x 100 stand rollout and three 1024-sample predictive-
-sampling plans through `rollout_spline` / `sampling_plan`), checks the
-kernels' launch counters, and prints a `kernels` JSON line (time, launch
-count, plain-twin time and roofline bound per kernel). The last line is
-{"ok": true, "device": {...}}. Any failed check exits non-zero. Without
-a CUDA device it exits non-zero and prints no result.
+It builds the three CUDA kernels (csrc/smooth.cu, csrc/solver.cu and
+csrc/euler.cu, one nvcc each for sm_90a, started together) and drives
+the port's two paths:
+
+- the humanoid (kernels B1 + B2): each kernel and the whole step against
+  the plain PyTorch twins on the card, the 1024 x 100 stand rollout and
+  three 1024-sample predictive-sampling plans;
+- the Swimmer (plain smooth stage + kernel B3): B3 against its twin on
+  Swimmer states (B = 1024 and an odd B = 300) and against B2 on the
+  humanoid's 694 explicit rows, the whole step against the twin
+  composition, three 1024-sample x 60-step plans and a 10 x 10 MPC loop
+  toward a target with the task's transition on.
+
+Each path is driven with the kernels' launch counters set to 0 just
+before it and read just after. It prints a `kernels` JSON line (time,
+launch count, plain-twin time and roofline bound per kernel). The last
+line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +42,10 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOP_S = 67e12    # H100 SXM fp32 peak outside the tensor cores
 BENCH_BATCH, BENCH_HORIZON = 1024, 100
 PLAN_SAMPLES, PLAN_HORIZON, PLAN_CALLS = 1024, 100, 3
+# the Swimmer: the JAX MPC test's configuration at the humanoid's sample
+# count and the step's default 8 solver iterations
+SWIM_HORIZON, SWIM_KNOTS, SWIM_PLAN_DT = 60, 6, 0.02
+SWIM_CYCLES, SWIM_SIM_STEPS, SWIM_TARGET = 10, 10, (0.0, -0.5)
 
 
 def log(phase: str, **kv):
@@ -191,6 +204,13 @@ def expect_error(exc, fn):
     raise AssertionError(f"expected {exc.__name__}")
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card needs to move
+    `nbytes` or to do `flops` fp32 operations, and which one sets it."""
+    tb, tf = 1e3 * nbytes / HBM_BYTES_S, 1e3 * flops / FP32_FLOP_S
+    return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
 def kernel_edges(m, device, B=300):
     """Both kernels at a batch that is not a multiple of the 128-thread
     block, B1 with per-body wrenches; on the card, the inputs the
@@ -258,6 +278,306 @@ def headline(m, B, horizon):
     return task, rollout
 
 
+def swimmer_states(m, B, seed=0):
+    """Swimmer states around make_state(swimmer_model()) (numpy seed):
+    root offsets 0.3 N, hinges uniform in ±1.3 rad, and in every other
+    env one hinge within 0.05 rad of (or past) its ±90° limit; qvel
+    0.8 N, ctrl uniform in the ctrl range."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    rng = np.random.default_rng(seed)
+    qpos = np.tile(make_state(m).qpos.cpu().numpy(), (B, 1))
+    qpos[:, :3] += 0.3 * rng.standard_normal((B, 3))
+    qpos[:, 3:] = rng.uniform(-1.3, 1.3, (B, 5))
+    near = np.arange(B) % 2 == 0
+    joint = rng.integers(0, 5, B)
+    edge = (np.pi / 2 + rng.uniform(-0.05, 0.02, B)) * rng.choice(
+        [-1.0, 1.0], B)
+    qpos[near, 3 + joint[near]] = edge[near]
+    qvel = 0.8 * rng.standard_normal((B, m.nv))
+    ctrl = rng.uniform(-1.0, 1.0, (B, m.nu))
+    return tuple(torch.tensor(x, dtype=m.dtype, device=m.device)
+                 for x in (qpos, qvel, ctrl))
+
+
+def swimmer_solve_inputs(m, qpos, qvel, ctrl):
+    """The B3 inputs of the Swimmer's step (plain smooth stage + limit
+    rows): (M, qf, qv, J, pos, k, b, d, hdamp, dt)."""
+    from humanoid_mujoco_torch.physics.engine import prepare_smooth
+    from humanoid_mujoco_torch.physics.solver import make_rows
+    _, _, M, qf = prepare_smooth(m, qpos, qvel, ctrl)
+    rows = make_rows(m, qpos)
+    return (M, qf, qvel, rows.J, rows.pos, rows.k, rows.b, rows.d,
+            m.dt * m.dof_damping, m.dt)
+
+
+def rows_trace(M, qf, qv, J, pos, k, b, d):
+    """The twin's Newton solve on explicit rows: (efc, x, f, trace)."""
+    from humanoid_mujoco_torch.ops import linalg
+    from humanoid_mujoco_torch.physics.solver import (Rows, finish_efc,
+                                                      newton_solve)
+    Mchol = linalg.chol_factor(M)
+    efc = finish_efc(Rows(J=J, pos=pos, k=k, b=b, d=d), qv, Mchol)
+    trace = []
+    x, f, _ = newton_solve(M, Mchol, qf, efc, trace=trace)
+    return efc, x, f, trace
+
+
+def rows_cost(J, f, trace):
+    """(bytes, flops) kernel B3 must move / do on this run's data.
+    Bytes: per-env inputs and outputs once each, damping and dt once.
+    Flops (an FMA is two) of the algorithm on these rows, counting each
+    row's nonzeros (nz): chol(M), a_smooth and M⁻¹ from the factor;
+    diag(J M⁻¹ Jᵀ), J qvel, D and aref per row; per iteration J x, the
+    gradient and Hessian updates of the rows active in it, M (x - a),
+    chol(H) and p, J p, and the 16-point line search only for the rows
+    active somewhere on its grid, read from the twin's iterations; the
+    final forces, Jᵀ f of the loaded rows, and the Euler solve."""
+    B, ne, nv = J.shape
+    nz = (J != 0).sum(dim=-1).double()                # (B, ne)
+    n_in = nv * nv + 2 * nv + ne * nv + 4 * ne
+    n_out = 3 * nv + ne
+    chol = nv ** 3 / 3
+    flops = B * (chol + 2 * nv * nv + 2 * chol)       # chol, a_s, M⁻¹
+    flops += float((2 * nz * nz + 2 * nz + 8).sum())  # diagA, J qv, D, aref
+    dense = (2 * nv * nv + nv + chol + 2 * nv * nv + nv
+             + 2 * nv * nv + 4 * nv + 32)             # Mx, H, p, pMp, x
+    flops += len(trace) * B * dense
+    for r, Jp in trace:
+        act = (r < 0).double()
+        flops += float((2 * nz + 1).sum() + (2 * nz).sum())       # J x, J p
+        flops += float((act * (2 * nz + nz * (nz + 1))).sum())    # g, H
+        flops += float(((r < 0) | (r + 4.0 * Jp < 0)).sum()) * (1 + 16 * 5)
+    flops += float((2 * nz + 3).sum())                # final r, f
+    flops += float(((f > 0).double() * 2 * nz).sum())  # Jᵀ f
+    flops += B * (chol + 2 * nv * nv + 3 * nv)        # Euler
+    return 4 * (B * (n_in + n_out) + nv + 1), flops
+
+
+def euler_edges(m, device, B=300):
+    """B3 at a batch that is not a multiple of the 128-thread block on
+    Swimmer states; on the card, the inputs its wrapper must refuse.
+    Returns the max relative error."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    args = swimmer_solve_inputs(m, *swimmer_states(m, B, seed=5))
+    ker = fused_solver.solve_constraints_euler(*args)
+    ref = fused_solver.solve_constraints_euler_reference(*args)
+    err = max(rel_err(r, o) for r, o in zip(ref, ker))
+    assert err <= TOL, err
+    if device != "cpu":
+        expect_error(TypeError, lambda: fused_solver.solve_constraints_euler(
+            *[a.double() for a in args[:8]], *args[8:]))
+        expect_error(ValueError, lambda: fused_solver.solve_constraints_euler(
+            *args[:3], args[3][:, :, :5], *args[4:]))
+        expect_error(ValueError, lambda: fused_solver.solve_constraints_euler(
+            *args[:4], args[4][:, :7], *args[5:]))
+        expect_error(ValueError, lambda: fused_solver.solve_constraints_euler(
+            *args[:4], args[4].cpu(), *args[5:]))
+    return {"batch": B, "euler_rel_err": err}
+
+
+def swimmer_rollout(m, B, horizon):
+    """A Swimmer rollout for tools/torch_profile.py: B states of
+    `swimmer_states` (seed 6) under a linear 6-knot spline of random
+    controls toward SWIM_TARGET. Returns rollout(), one
+    `rollout_spline` of `horizon` steps."""
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.rollout import rollout_spline
+    from humanoid_mujoco_torch.tasks import swimmer_task
+    task = swimmer_task(target=SWIM_TARGET, device=m.device)
+    qpos, qvel, _ = swimmer_states(m, B, seed=6)
+    s0 = State(qpos=qpos, qvel=qvel,
+               time=torch.zeros(B, dtype=m.dtype, device=m.device))
+    rng = np.random.default_rng(6)
+    times = torch.linspace(0.0, horizon * float(m.dt), SWIM_KNOTS,
+                           dtype=m.dtype, device=m.device)
+    values = torch.tensor(rng.uniform(-1.0, 1.0, (B, SWIM_KNOTS, m.nu)),
+                          dtype=m.dtype, device=m.device)
+
+    def rollout():
+        return rollout_spline(m, task, s0, times, values, SplineOrder.LINEAR,
+                              horizon)
+    return rollout
+
+
+def run_swimmer(device="cuda", B=BENCH_BATCH, nsample=PLAN_SAMPLES,
+                plan_horizon=SWIM_HORIZON, ncycle=SWIM_CYCLES,
+                sim_steps=SWIM_SIM_STEPS, gpu="cpu", humanoid_b3=None):
+    """The Swimmer's path: B3 vs its twin, the whole step, the plans and
+    the MPC loop. Returns B3's row of the kernel table."""
+    from humanoid_mujoco_torch import mpc
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import integrate_pos, step
+    from humanoid_mujoco_torch.planners import (SamplingConfig,
+                                                init_policy, sampling_plan)
+    from humanoid_mujoco_torch.tasks import get_task, task_model
+
+    timer = Timer(device)
+    m = task_model("Swimmer", device=device)
+    qpos, qvel, ctrl = swimmer_states(m, B)
+
+    # ---- 8. B3 kernel vs its twin on Swimmer rows ----
+    args = swimmer_solve_inputs(m, qpos, qvel, ctrl)
+    ker = fused_solver.solve_constraints_euler(*args)
+    ref = fused_solver.solve_constraints_euler_reference(*args)
+    names = ("qacc", "qvel_new", "f", "qfrc_constraint")
+    errs = {n: rel_err(r, o, n) for n, r, o in zip(names, ref, ker)}
+    worst = max(errs, key=errs.get)
+    efc, x_t, f_t, trace = rows_trace(*args[:8])
+    knife = knife_edges(efc, x_t, args[3].shape[1])
+    log("euler_vs_twin", batch=B, max_rel_err=errs[worst], worst=worst,
+        tol=TOL, errs=errs, knife_edge_states=knife,
+        active_rows=int((f_t > 0).sum()))
+    assert errs[worst] <= TOL, f"B3 {worst}: {errs[worst]:.3e} > {TOL}"
+    log("euler_edges", tol=TOL, **euler_edges(m, device))
+
+    # ---- 9. the Swimmer's whole step: kernel vs the twin composition ----
+    s_k, info_k = step(m, make_state(m, qpos=qpos, qvel=qvel), ctrl)
+    q_r = integrate_pos(m, qpos, ref[1], m.dt)
+    errs9 = {"qpos": rel_err(q_r, s_k.qpos), "qvel": rel_err(ref[1], s_k.qvel),
+             "qacc": rel_err(ref[0], info_k.qacc)}
+    worst9 = max(errs9, key=errs9.get)
+    log("swimmer_step_vs_twin", batch=B, max_rel_err=errs9[worst9],
+        worst=worst9, tol=TOL, errs=errs9,
+        diverged=int(info_k.diverged.sum()))
+    assert errs9[worst9] <= TOL, f"step {worst9}: {errs9[worst9]:.3e}"
+    assert not bool(info_k.diverged.any()), "Swimmer step diverged"
+
+    # ---- 10. Swimmer plans ----
+    task = get_task("Swimmer", target=SWIM_TARGET, device=device)
+    pm = mpc.make_plan_model(m, SWIM_PLAN_DT)
+    cfg = SamplingConfig(nsample=nsample, nknots=SWIM_KNOTS,
+                         horizon=plan_horizon, order=SplineOrder.LINEAR,
+                         exploration=0.3, solver_iters=8)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    s0 = make_state(m)
+    pol = init_policy(m, SWIM_KNOTS)
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
+    for i in range(PLAN_CALLS):
+        holder = {}
+
+        def plan():
+            holder["out"] = sampling_plan(pm, task, cfg, pol, s0,
+                                          generator=gen)
+        lat = timer(plan, 1)
+        pol, info = holder["out"]
+        best, nominal = float(info.best_return), float(info.nominal_return)
+        log("swimmer_plan", gpu=gpu, call=i, nsample=nsample,
+            horizon=plan_horizon, latency_ms=lat, best=best,
+            nominal=nominal, winner=int(info.winner))
+        assert best <= nominal, (best, nominal)
+    plan_launches = {"smooth": fused_smooth.LAUNCHES,
+                     "solver": fused_solver.LAUNCHES,
+                     "euler": fused_solver.EULER_LAUNCHES}
+    log("swimmer_plan_launches", **plan_launches)
+    if device != "cpu":
+        assert plan_launches == {"smooth": 0, "solver": 0,
+                                 "euler": PLAN_CALLS * plan_horizon}
+
+    # ---- 11. the Swimmer MPC loop with the task's transition ----
+    def plan_fn(mm, tt, pp, ss, g):
+        return sampling_plan(mm, tt, cfg, pp, ss, generator=g)
+    target = torch.tensor(SWIM_TARGET, dtype=m.dtype, device=device)
+    s_mpc = make_state(m)
+    holder = {}
+
+    def loop():
+        holder["res"] = mpc.mpc_rollout(
+            m, pm, task, plan_fn, init_policy(m, SWIM_KNOTS), s_mpc, gen,
+            ncycle, sim_steps, mpc.spline_action_fn(SplineOrder.LINEAR),
+            run_transition=True)
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
+    loop_ms = timer(loop, 1)
+    mpc_launches = {"smooth": fused_smooth.LAUNCHES,
+                    "solver": fused_solver.LAUNCHES,
+                    "euler": fused_solver.EULER_LAUNCHES}
+    res = holder["res"]
+    d0 = float(torch.linalg.vector_norm(s_mpc.qpos[0, :2] - target))
+    heads = res.states[..., :2].reshape(-1, 2)
+    dist = torch.linalg.vector_norm(
+        torch.cat([heads, res.final_state.qpos[:, :2]]) - target, dim=-1)
+    log("swimmer_mpc", gpu=gpu, cycles=ncycle, sim_steps=sim_steps,
+        nsample=nsample, loop_ms=loop_ms, launches=mpc_launches,
+        head_dist_start=d0, head_dist_end=float(dist[-1]),
+        head_dist_per_cycle=dist[::sim_steps].tolist(),
+        mean_cost=float(res.costs.mean()),
+        plan_returns=res.plan_returns.tolist(),
+        target_end=res.final_task.mocap_pos[0].tolist())
+    assert bool(torch.isfinite(res.costs).all()), "non-finite MPC costs"
+    assert float(dist[-1]) < d0, ("head did not close on the target",
+                                  d0, float(dist[-1]))
+    if device != "cpu":
+        assert mpc_launches == {"smooth": 0, "solver": 0,
+                                "euler": ncycle * plan_horizon
+                                + ncycle * sim_steps}, mpc_launches
+
+    # ---- 12. B3's row of the kernel table ----
+    n3 = fused_solver.EULER_LAUNCHES
+    t_k = timer(lambda: fused_solver.solve_constraints_euler(*args), 20)
+    t_r = timer(lambda: fused_solver.solve_constraints_euler_reference(
+        *args), 5)
+    fused_solver.EULER_LAUNCHES = n3      # timing launches are not counted
+    nbytes, flops = rows_cost(args[3], f_t, trace)
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = {"name": "euler", "route": "cuda",
+           "source": "humanoid_mujoco_torch/csrc/euler.cu",
+           "replaces": "humanoid_mujoco_tpu/physics/pallas_solver.py:102",
+           "launches": plan_launches["euler"] + mpc_launches["euler"],
+           "max_abs_err": max(float((r - o).abs().max())
+                              for r, o in zip(ref, ker)),
+           "ms": t_k, "plain_ms": t_r, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "bytes": nbytes, "flops": flops,
+           "launches_per_plan_step": plan_launches["euler"]
+           / (PLAN_CALLS * plan_horizon),
+           "launches_plans": plan_launches["euler"],
+           "launches_mpc": mpc_launches["euler"]}
+    if humanoid_b3:
+        row.update(humanoid_b3)
+    return row
+
+
+def euler_vs_solver(m, solve_in, lim_tab, ker2, knife, timer):
+    """B3 against B2 on the same solve: the humanoid's selection-free
+    explicit rows (rows_from_raw) into B3, the raw data they come from
+    into B2. Returns B3's numbers on these rows for the kernel table."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    from humanoid_mujoco_torch.physics.solver import rows_from_raw
+    (M, qfs, qvel, cdof, rel, nrm, dist, mu3, dmask, kc, bc, dc,
+     lpos, kl, bl, dl, hdamp, h) = solve_in
+    rows = rows_from_raw(cdof, dmask, rel, nrm, dist, mu3, kc, bc, dc,
+                         lim_tab, lpos, kl, bl, dl)
+    args = (M, qfs, qvel, rows.J.contiguous(), rows.pos, rows.k, rows.b,
+            rows.d, hdamp, h)
+    ker3 = fused_solver.solve_constraints_euler(*args)
+    names = ("qacc", "qvel_new", "qfrc_constraint")
+    errs = {n: rel_err(r, o, n) for n, r, o in
+            zip(names, (ker2[0], ker2[1], ker2[3]),
+                (ker3[0], ker3[1], ker3[3]))}
+    worst = max(errs, key=errs.get)
+    log("euler_vs_solver", batch=M.shape[0], rows=list(rows.J.shape[1:]),
+        max_rel_err=errs[worst], worst=worst, tol=TOL, errs=errs,
+        knife_edge_states=knife)
+    assert errs[worst] <= TOL, f"B3 vs B2 {worst}: {errs[worst]:.3e}"
+    n3 = fused_solver.EULER_LAUNCHES
+    t_k = timer(lambda: fused_solver.solve_constraints_euler(*args), 5)
+    t_r = timer(lambda: fused_solver.solve_constraints_euler_reference(
+        *args), 3)
+    fused_solver.EULER_LAUNCHES = n3
+    _, _, f_t, trace = rows_trace(*args[:8])
+    nbytes, flops = rows_cost(args[3], f_t, trace)
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"ms_humanoid_rows": t_k, "plain_ms_humanoid_rows": t_r,
+            "bound_ms_humanoid_rows": bound_ms,
+            "bound_by_humanoid_rows": bound_by,
+            "bytes_humanoid_rows": nbytes, "flops_humanoid_rows": flops,
+            "max_rel_err_vs_solver": errs[worst]}
+
+
 def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
         nsample=PLAN_SAMPLES, plan_horizon=PLAN_HORIZON, gpu="cpu"):
     from humanoid_mujoco_torch.ops.spline import SplineOrder
@@ -306,6 +626,9 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
         tol=TOL, errs=errs2, knife_edge_states=knife)
     assert errs2[worst2] <= TOL, f"B2 {worst2}: {errs2[worst2]:.3e} > {TOL}"
 
+    # ---- 3b. B3 against B2 on the humanoid's 694 explicit rows ----
+    b3_rows = euler_vs_solver(m, solve_in, lim_tab, ker2, knife, timer)
+
     # ---- 4. whole step: kernels vs the twin composition ----
     s_k, info_k = step(m, make_state(m, qpos=qpos, qvel=qvel), ctrl)
     qacc_r, qv_r, cf_r, _ = ref2
@@ -326,11 +649,13 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     task, rollout = headline(m, B, horizon)
     rollout()                                          # warm-up
     fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
     res = rollout()
     if device != "cpu":
         torch.cuda.synchronize()
     launches = {"smooth": fused_smooth.LAUNCHES,
-                "solver": fused_solver.LAUNCHES}
+                "solver": fused_solver.LAUNCHES,
+                "euler": fused_solver.EULER_LAUNCHES}
     fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
     ms = timer(rollout, 3)
     timed = {"smooth": fused_smooth.LAUNCHES, "solver": fused_solver.LAUNCHES}
@@ -340,7 +665,8 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
         mean_return=float(returns.mean()),
         diverged=int(res.diverged.sum()))
     if device != "cpu":
-        assert launches == {"smooth": horizon, "solver": horizon}, launches
+        assert launches == {"smooth": horizon, "solver": horizon,
+                            "euler": 0}, launches
         assert timed == {"smooth": 3 * horizon, "solver": 3 * horizon}
     assert bool(torch.isfinite(returns).all()), "non-finite returns"
     assert not bool(res.diverged.any()), "rollout diverged"
@@ -353,6 +679,7 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     s0 = make_state(m, qpos=humanoid.stand_qpos(m))
     plan_pol = init_policy(m, 3)
     fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
     for i in range(PLAN_CALLS):
         holder = {}
 
@@ -367,11 +694,13 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
             winner=int(info.winner))
         assert best <= nominal, (best, nominal)
     plan_launches = {"smooth": fused_smooth.LAUNCHES,
-                     "solver": fused_solver.LAUNCHES}
+                     "solver": fused_solver.LAUNCHES,
+                     "euler": fused_solver.EULER_LAUNCHES}
     log("plan_launches", **plan_launches)
     if device != "cpu":
         assert plan_launches == {"smooth": PLAN_CALLS * plan_horizon,
-                                 "solver": PLAN_CALLS * plan_horizon}
+                                 "solver": PLAN_CALLS * plan_horizon,
+                                 "euler": 0}
 
     # ---- 7. kernel table ----
     n0, n1 = fused_smooth.LAUNCHES, fused_solver.LAUNCHES
@@ -389,11 +718,11 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     b2_bytes, b2_flops = solve_cost(m, B, dmask, lim_tab, f_t, trace)
 
     def row(name, src, replaces, n, err, t, tr, nbytes, flops):
-        tb, tf = 1e3 * nbytes / HBM_BYTES_S, 1e3 * flops / FP32_FLOP_S
+        bound_ms, bound_by = bound(nbytes, flops)
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": err,
-                "ms": t, "plain_ms": tr, "bound_ms": max(tb, tf),
-                "bound_by": "bytes" if tb >= tf else "operations",
+                "ms": t, "plain_ms": tr, "bound_ms": bound_ms,
+                "bound_by": bound_by,
                 "library_ms": None, "bytes": nbytes, "flops": flops}
 
     max_abs1 = max(float((r - o).abs().max()) for n, r, o in
@@ -408,7 +737,7 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
             "humanoid_mujoco_tpu/physics/pallas_solver.py:629",
             launches["solver"], max_abs2, t_k2, t_r2, b2_bytes, b2_flops),
     ]
-    return table
+    return table, b3_rows
 
 
 def main():
@@ -432,7 +761,8 @@ def main():
         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-    table = run("cuda", gpu=smi)
+    table, b3_rows = run("cuda", gpu=smi)
+    table.append(run_swimmer("cuda", gpu=smi, humanoid_b3=b3_rows))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // Shared device helpers for the hand-written Hopper kernels of the
-// humanoid step (smooth.cu, solver.cu).
+// humanoid step (smooth.cu, solver.cu) and of the explicit-row solve
+// (euler.cu).
 //
 // Layout: one thread per environment, batch-last. Every per-env array
 // (inputs, outputs, scratch) is stored [..., B], so element i of env e
@@ -153,6 +154,39 @@ __device__ __forceinline__ void solref_kb(float tc, float dr, float dmax,
   tc = fmaxf(tc, 2.0f * dt);
   b = 2.0f / fmaxf(dmax * tc, 1e-9f);
   k = d / fmaxf(dmax * dmax * tc * tc * dr * dr, 1e-12f);
+}
+
+// Cholesky clamp of the TPU kernels (pallas_solver._EPS)
+constexpr float EPS_CHOL = 1e-12f;
+
+// in-place lower Cholesky of the n x n matrix A (row-major; reads and
+// writes the lower triangle only), pivots clamped at EPS_CHOL
+__device__ inline void chol(const Out& A, int n) {
+  for (int j = 0; j < n; ++j) {
+    float s = A[j * n + j];
+    for (int k = 0; k < j; ++k) s -= A[j * n + k] * A[j * n + k];
+    const float d = sqrtf(mx(s, EPS_CHOL));
+    A[j * n + j] = d;
+    for (int i = j + 1; i < n; ++i) {
+      float t = A[i * n + j];
+      for (int k = 0; k < j; ++k) t -= A[i * n + k] * A[j * n + k];
+      A[i * n + j] = t / d;
+    }
+  }
+}
+
+// x <- (L Lᵀ)⁻¹ x
+__device__ inline void chol_solve(const Out& L, int n, const Out& x) {
+  for (int i = 0; i < n; ++i) {
+    float s = x[i];
+    for (int k = 0; k < i; ++k) s -= L[i * n + k] * x[k];
+    x[i] = s / L[i * n + i];
+  }
+  for (int i = n - 1; i >= 0; --i) {
+    float s = x[i];
+    for (int k = i + 1; k < n; ++k) s -= L[k * n + i] * x[k];
+    x[i] = s / L[i * n + i];
+  }
 }
 
 }  // namespace hm

@@ -39,7 +39,6 @@ using namespace hm;
 namespace {
 
 constexpr int LS_MAX = 16;  // capacity of the line-search grid
-constexpr float EPS_CHOL = 1e-12f;
 
 struct SolveArgs {
   const float *M, *qf, *qv, *cdof, *rel, *nrm, *dist, *mu3, *dmask, *kc, *bc,
@@ -49,36 +48,6 @@ struct SolveArgs {
   float *qacc, *qvn, *fslot, *qfc, *scratch;
   int B, nv, K, nlim, niter, nls;
 };
-
-// in-place lower Cholesky of the n x n matrix A (row-major), pivots
-// clamped at EPS_CHOL
-__device__ void chol(const Out& A, int n) {
-  for (int j = 0; j < n; ++j) {
-    float s = A[j * n + j];
-    for (int k = 0; k < j; ++k) s -= A[j * n + k] * A[j * n + k];
-    const float d = sqrtf(mx(s, EPS_CHOL));
-    A[j * n + j] = d;
-    for (int i = j + 1; i < n; ++i) {
-      float t = A[i * n + j];
-      for (int k = 0; k < j; ++k) t -= A[i * n + k] * A[j * n + k];
-      A[i * n + j] = t / d;
-    }
-  }
-}
-
-// x <- (L Lᵀ)⁻¹ x
-__device__ void chol_solve(const Out& L, int n, const Out& x) {
-  for (int i = 0; i < n; ++i) {
-    float s = x[i];
-    for (int k = 0; k < i; ++k) s -= L[i * n + k] * x[k];
-    x[i] = s / L[i * n + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    float s = x[i];
-    for (int k = i + 1; k < n; ++k) s -= L[k * n + i] * x[k];
-    x[i] = s / L[i * n + i];
-  }
-}
 
 struct Ctx {
   In cdof, rel, nrm;

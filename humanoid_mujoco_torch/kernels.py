@@ -30,6 +30,7 @@ SIGNATURES = {
                [_P, _P, _P, _P, _I] + [_P] * 10 + [_P] * 13 + [_I, _P]),
     "solver": ("hm_solve",
                [_P] * 18 + [_P] * 4 + [_P] * 5 + [_I] * 6 + [_P]),
+    "euler": ("hm_solve_euler", [_P] * 11 + [_P] * 5 + [_I] * 5 + [_P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

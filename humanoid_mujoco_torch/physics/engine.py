@@ -1,7 +1,8 @@
 """Forward kinematics + smooth (unconstrained) dynamics, batched.
 
 Counterpart of humanoid_mujoco_tpu/physics/engine.py for the kernel
-family (free/hinge/slide joints, motor/position actuators). Every
+family (free/hinge/slide joints, motor/position actuators) and the
+inertia-box fluid drag of the Swimmer's medium. Every
 function takes batch-leading tensors; loops run over the static
 structure, and the per-body recursions are masked contractions over
 the static (nbody, nv) chain mask, as in the JAX package.
@@ -13,6 +14,8 @@ whole-model COM (the anchor).
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import torch
 
@@ -259,6 +262,53 @@ def passive_force(m: Model, qpos: torch.Tensor, qvel: torch.Tensor
     return torch.stack(cols, dim=-1)
 
 
+def fluid_force(m: Model, kin: Kin, vel: Vel) -> torch.Tensor:
+    """Inertia-box fluid drag (mj_inertiaBoxFluidModel analog), (B, nv).
+
+    Each body is replaced by the box with its mass and diagonal inertia,
+    full dims d_i = sqrt(6 (I_j + I_k - I_i) / mass); Stokes viscous drag
+    and quadratic density drag act on its body-frame velocity at the COM:
+
+      viscous:  F = -3 pi d_mean mu v,  T = -pi d_mean^3 mu w
+      density:  F_i = -1/2 rho d_j d_k |v_i| v_i
+                T_i = -rho d_i (d_j^4 + d_k^4) |w_i| w_i / 64
+
+    Massless bodies get no drag.
+    """
+    s = m.struct
+    rho, mu = s.fluid_density, s.fluid_viscosity
+    w_com = vel.cvel[..., :3]
+    v_com = vel.cvel[..., 3:] + pm.cross(w_com,
+                                         kin.xipos - kin.anchor[:, None])
+    Ri = kin.xmat @ pm.quat_to_mat(m.body_iquat)       # (B, nbody, 3, 3)
+    # body-frame velocities: Riᵀ v
+    lv = torch.einsum("nbji,nbj->nbi", Ri, v_com)
+    lw = torch.einsum("nbji,nbj->nbi", Ri, w_com)
+
+    mass = torch.clamp(m.body_mass, min=1e-12)[:, None]
+    inertia = m.body_inertia
+    isum = torch.sum(inertia, dim=-1, keepdim=True)
+    d = torch.sqrt(torch.clamp(6.0 * (isum - 2.0 * inertia) / mass,
+                               min=1e-12))                # (nbody, 3)
+    dj = torch.roll(d, -1, dims=-1)
+    dk = torch.roll(d, -2, dims=-1)
+
+    frc = torch.zeros_like(lv)
+    trq = torch.zeros_like(lw)
+    if mu:
+        diam = torch.mean(d, dim=-1, keepdim=True)
+        frc = frc - 3.0 * math.pi * diam * mu * lv
+        trq = trq - math.pi * diam ** 3 * mu * lw
+    if rho:
+        frc = frc - 0.5 * rho * dj * dk * torch.abs(lv) * lv
+        trq = trq - rho * d * (dj ** 4 + dk ** 4) / 64.0 * torch.abs(lw) * lw
+
+    live = (m.body_mass > 1e-12).to(lv.dtype)[:, None]
+    frc_w = torch.einsum("nbij,nbj->nbi", Ri, frc) * live
+    trq_w = torch.einsum("nbij,nbj->nbi", Ri, trq) * live
+    return xfrc_to_qfrc(m, kin, torch.cat([frc_w, trq_w], dim=-1))
+
+
 def xfrc_to_qfrc(m: Model, kin: Kin, xfrc: torch.Tensor) -> torch.Tensor:
     """Per-body world wrenches (B, nbody, 6) [force; torque] at the body
     COM -> generalized forces (B, nv)."""
@@ -267,3 +317,23 @@ def xfrc_to_qfrc(m: Model, kin: Kin, xfrc: torch.Tensor) -> torch.Tensor:
                    frc], dim=-1)
     wsum = torch.einsum("bv,nbk->nvk", m.body_dof_t(xfrc.dtype), w)
     return torch.sum(kin.cdof * wsum, dim=-1)
+
+
+def prepare_smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
+                   ctrl: torch.Tensor, xfrc: Optional[torch.Tensor] = None):
+    """The plain smooth stage (counterpart of the JAX step's
+    `_prepare_smooth` without collision): kinematics, M, the bias,
+    actuation, passive and fluid forces and optional per-body wrenches.
+    Returns (kin, vel, M, qfrc_smooth), batch-leading."""
+    kin = fwd_position(m, qpos)
+    vel = fwd_velocity(m, kin, qvel)
+    M = crb_mass_matrix(m, kin)
+    bias = rnea_bias(m, kin, vel, qvel)
+    tau = actuation(m, qpos, qvel, ctrl)
+    qfrc_passive = passive_force(m, qpos, qvel)
+    if m.struct.fluid_density or m.struct.fluid_viscosity:
+        qfrc_passive = qfrc_passive + fluid_force(m, kin, vel)
+    qfrc_smooth = tau + qfrc_passive - bias
+    if xfrc is not None:
+        qfrc_smooth = qfrc_smooth + xfrc_to_qfrc(m, kin, xfrc)
+    return kin, vel, M, qfrc_smooth

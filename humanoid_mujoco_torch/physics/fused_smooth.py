@@ -65,14 +65,7 @@ def smooth_raw_reference(m: Model, qpos, qvel, ctrl, xfrc=None):
     """Plain PyTorch twin of kernel B1 (counterpart of
     pallas_smooth.jax_smooth_single): engine + collision +
     contact_raw + limit_rows_data, selection-free, batch-leading."""
-    kin = engine.fwd_position(m, qpos)
-    vel = engine.fwd_velocity(m, kin, qvel)
-    M = engine.crb_mass_matrix(m, kin)
-    bias = engine.rnea_bias(m, kin, vel, qvel)
-    qfs = (engine.actuation(m, qpos, qvel, ctrl)
-           + engine.passive_force(m, qpos, qvel) - bias)
-    if xfrc is not None:
-        qfs = qfs + engine.xfrc_to_qfrc(m, kin, xfrc)
+    kin, vel, M, qfs = engine.prepare_smooth(m, qpos, qvel, ctrl, xfrc)
     contacts = collide(m, kin.xpos, kin.xmat)
     _dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts)
     lpos, kl, bl, dl = limit_rows_data(m, qpos)

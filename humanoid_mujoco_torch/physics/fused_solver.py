@@ -1,16 +1,21 @@
-"""The constraint stage of the step: kernel B2 and its plain PyTorch twin.
+"""The constraint stage of the step: kernels B2 and B3 and their plain
+PyTorch twins.
 
-Counterpart of humanoid_mujoco_tpu/physics/pallas_solver.py
-(`solve_step_raw`). From the raw contact and limit data of the smooth
-stage it builds the condim-6 pyramid rows, runs the Newton contact solve
-and the implicit-damping Euler update
-(M + h diag(damping)) dv = h (qfrc_smooth + qfrc_constraint).
+Counterpart of humanoid_mujoco_tpu/physics/pallas_solver.py. Both
+kernels run the Newton constraint solve and the implicit-damping Euler
+update (M + h diag(damping)) dv = h (qfrc_smooth + qfrc_constraint):
 
-`solve_step_raw` is the entry point. For CPU tensors it runs the twin
-`solve_step_raw_reference` (the counterpart of `_jax_single_raw`); for
-CUDA tensors it launches the kernel in csrc/solver.cu, or raises. As in
-the JAX package, the kernel serves rollouts only; derivative callers
-will use the twin.
+- `solve_step_raw` (B2, csrc/solver.cu) builds the condim-6 pyramid rows
+  from the raw contact and limit data of the smooth stage; its twin is
+  `solve_step_raw_reference` (the counterpart of `_jax_single_raw`);
+- `solve_constraints_euler` (B3, csrc/euler.cu) takes explicit rows
+  J (B, ne, nv) with per-row pos, k, b, d, as for a model without
+  contact slots; its twin is `solve_constraints_euler_reference` (the
+  counterpart of `_jax_single`).
+
+For CPU tensors each entry point runs its twin; for CUDA tensors it
+launches its kernel, or raises. As in the JAX package, the kernels serve
+rollouts only; derivative callers will use the twins.
 """
 
 from __future__ import annotations
@@ -21,10 +26,11 @@ import numpy as np
 import torch
 
 from ..ops import linalg
-from .solver import finish_efc, ls_grid, newton_solve, rows_from_raw
+from .solver import Rows, finish_efc, ls_grid, newton_solve, rows_from_raw
 
-# kernel launches since import (or since the caller reset it)
+# kernel launches since import (or since the caller reset it): B2, B3
 LAUNCHES = 0
+EULER_LAUNCHES = 0
 LS_MAX = 16          # line-search grid capacity of the kernel
 
 
@@ -32,20 +38,18 @@ def solve_step_raw_reference(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
                              kc, bc, dc, lpos, kl, bl, dl, hdamp, dt,
                              lim_tab=(), niter: int = 8, ls_iter: int = 16):
     """Plain PyTorch twin of kernel B2 (counterpart of
-    pallas_solver._jax_single_raw): rows_from_raw + finish_efc +
-    newton_solve + Euler. Returns (qacc, qvel_new, fslot, qfrc_c)."""
+    pallas_solver._jax_single_raw): rows_from_raw, then the B3 twin
+    (finish_efc + newton_solve + Euler). Returns (qacc, qvel_new, fslot,
+    qfrc_c)."""
     B, nv = qf.shape
     K, nlim = dist.shape[1], lpos.shape[1]
     rows = rows_from_raw(cdof, dmask, rel, nrm, dist, mu3, kc, bc, dc,
                          lim_tab, lpos, kl, bl, dl)
-    Mchol = linalg.chol_factor(M)
-    efc = finish_efc(rows, qv, Mchol)
-    qacc, f, qfc = newton_solve(M, Mchol, qf, efc, niter=niter,
-                                ls_iter=ls_iter)
-    MhD = M + torch.diag(torch.as_tensor(hdamp, dtype=M.dtype))
-    dv = dt * linalg.solve_psd(MhD, qf + qfc)
+    qacc, qvn, f, qfc = solve_constraints_euler_reference(
+        M, qf, qv, rows.J, rows.pos, rows.k, rows.b, rows.d, hdamp, dt,
+        niter, ls_iter)
     fslot = f[:, nlim:].reshape(B, 10, K).sum(dim=1)
-    return qacc, qv + dv, fslot, qfc
+    return qacc, qvn, fslot, qfc
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,3 +158,77 @@ def solve_step_raw(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
                    B, nv, K, nlim, niter, ls_iter)
     LAUNCHES += 1
     return qacc.t(), qvn.t(), fslot.t(), qfc.t()
+
+
+def solve_constraints_euler_reference(M, qf, qv, J, pos, k, b, d, hdamp,
+                                      dt, niter: int = 8,
+                                      ls_iter: int = 16):
+    """Plain PyTorch twin of kernel B3 (counterpart of
+    pallas_solver._jax_single): finish_efc + newton_solve + Euler.
+    Returns (qacc, qvel_new, efc_force, qfrc_constraint)."""
+    Mchol = linalg.chol_factor(M)
+    efc = finish_efc(Rows(J=J, pos=pos, k=k, b=b, d=d), qv, Mchol)
+    qacc, f, qfc = newton_solve(M, Mchol, qf, efc, niter=niter,
+                                ls_iter=ls_iter)
+    MhD = M + torch.diag(torch.as_tensor(hdamp, dtype=M.dtype,
+                                         device=M.device))
+    dv = dt * linalg.solve_psd(MhD, qf + qfc)
+    return qacc, qv + dv, f, qfc
+
+
+def euler_scratch_floats(nv: int, ne: int) -> int:
+    """Per-env scratch of kernel B3 (the Carver layout in euler.cu)."""
+    return 2 * nv * nv + 6 * nv + 3 * ne
+
+
+def solve_constraints_euler(M, qf, qv, J, pos, k, b, d, hdamp, dt,
+                            niter: int = 8, ls_iter: int = 16):
+    """Constraint Newton solve + implicit-damping Euler on explicit rows.
+
+    Batch-leading inputs: M (B, nv, nv), qf/qv (B, nv), J (B, ne, nv),
+    pos/k/b/d (B, ne); hdamp (nv,) and dt () shared by the batch.
+    Returns (qacc, qvel_new, efc_force (B, ne), qfrc_constraint).
+    """
+    global EULER_LAUNCHES
+    if M.device.type == "cpu":
+        return solve_constraints_euler_reference(
+            M, qf, qv, J, pos, k, b, d, hdamp, dt, niter, ls_iter)
+    from .. import kernels
+    B, ne, nv = J.shape
+    dev = M.device
+    args = (M, qf, qv, J, pos, k, b, d)
+    shapes = ((B, nv, nv), (B, nv), (B, nv), (B, ne, nv), (B, ne),
+              (B, ne), (B, ne), (B, ne))
+    for t, shape in zip(args, shapes):
+        if t.device != dev:
+            raise ValueError("all kernel inputs must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the explicit-row solve kernel runs in "
+                            f"float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"kernel input of shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if not 2 <= ls_iter <= LS_MAX:
+        raise ValueError(f"ls_iter must be in [2, {LS_MAX}]")
+    f32 = torch.float32
+    hd = torch.as_tensor(hdamp, dtype=f32, device=dev)
+    dtt = torch.as_tensor(dt, dtype=f32, device=dev)
+    if hd.shape != (nv,) or dtt.numel() != 1:
+        raise ValueError("hdamp must be (nv,) and dt one value, shared by "
+                         "the batch")
+    ins = (M.permute(1, 2, 0).contiguous(), qf.t().contiguous(),
+           qv.t().contiguous(), J.permute(1, 2, 0).contiguous(),
+           *(x.t().contiguous() for x in (pos, k, b, d)),
+           hd.contiguous(), dtt.reshape(1).contiguous(),
+           _grid(ls_iter, dev))
+    qacc = torch.empty((nv, B), dtype=f32, device=dev)
+    qvn = torch.empty((nv, B), dtype=f32, device=dev)
+    f = torch.empty((ne, B), dtype=f32, device=dev)
+    qfc = torch.empty((nv, B), dtype=f32, device=dev)
+    scratch = torch.empty((euler_scratch_floats(nv, ne), B), dtype=f32,
+                          device=dev)
+    outs = (qacc, qvn, f, qfc, scratch)
+    kernels.launch("euler", *(t.data_ptr() for t in ins + outs),
+                   B, nv, ne, niter, ls_iter)
+    EULER_LAUNCHES += 1
+    return qacc.t(), qvn.t(), f.t(), qfc.t()

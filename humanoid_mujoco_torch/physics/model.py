@@ -295,6 +295,8 @@ class ModelBuilder:
         self.floor_friction_roll = 0.0001
         self.has_floor = True
         self.max_contacts = 0
+        self.fluid_density = 0.0     # MJCF <option density>
+        self.fluid_viscosity = 0.0   # MJCF <option viscosity>
         self.hfield_shape = (2, 2)
         self.hfield_halfsize = (10.0, 10.0)
         self.solref = (0.015, 1.0)
@@ -416,6 +418,8 @@ class ModelBuilder:
             site_body=tuple(s["body"] for s in self._sites),
             has_floor=self.has_floor,
             max_contacts=self.max_contacts,
+            fluid_density=float(self.fluid_density),
+            fluid_viscosity=float(self.fluid_viscosity),
             sph_floor=tuple(s["floor"] for s in self._sphs),
             slot_body_a=tuple(slot_a), slot_body_b=tuple(slot_b),
         )

@@ -107,6 +107,23 @@ def limit_rows_data(m: Model, qpos: torch.Tensor):
     return pos, k, b.expand(pos.shape), d
 
 
+def make_rows(m: Model, qpos: torch.Tensor) -> Rows:
+    """Raw constraint rows of a model without contact slots: the joint
+    limits, two rows per limited scalar joint (the limit block of the
+    JAX make_rows). J is the static table broadcast to (B, nlim, nv);
+    pos, k, b, d are (B, nlim), with k and b from the model's dt."""
+    if m.ncon:
+        raise NotImplementedError(
+            "contact pyramid rows and top-k contact selection outside "
+            "the kernel family come with slice 4 of the port")
+    lim_tab = m.static("lim_tab", lambda: limit_rows_static(m))
+    J = m.static(("lim_J", qpos.dtype), lambda: torch.tensor(
+        lim_tab, dtype=qpos.dtype, device=qpos.device).reshape(
+            len(lim_tab), m.nv))
+    pos, k, b, d = limit_rows_data(m, qpos)
+    return Rows(J=J.expand(qpos.shape[0], -1, -1), pos=pos, k=k, b=b, d=d)
+
+
 def contact_dmask(m: Model) -> torch.Tensor:
     """Static chain-difference dof mask (ncon, nv): body_b's chain minus
     body_a's chain per slot (floor side = no dofs), as floats."""

@@ -1,12 +1,23 @@
 """The physics step: the mj_step analog on a batch of states.
 
-Counterpart of the kernel path of humanoid_mujoco_tpu/physics/step.py
-(step.py:252-287): the smooth stage (kernel B1, fused_smooth.smooth_raw),
-the row-building contact solve + implicit-damping Euler (kernel B2,
-fused_solver.solve_step_raw), then position integration on the
-configuration manifold. The contact set is selection-free over all slots,
-as on the JAX kernel path. CPU tensors run the two kernels' plain PyTorch
-twins; CUDA tensors run the kernels.
+Counterpart of humanoid_mujoco_tpu/physics/step.py (step.py:245-350),
+with its two kernel paths:
+
+- models in kernel B1's family (`fused_smooth.supported`, the cap
+  humanoid): the smooth stage (kernel B1, fused_smooth.smooth_raw), then
+  the row-building contact solve + implicit-damping Euler (kernel B2,
+  fused_solver.solve_step_raw), selection-free over all slots as on the
+  JAX kernel path;
+- models with no contact slots and at least one constraint row (the
+  Swimmer): the plain smooth stage `engine.prepare_smooth` (plain
+  PyTorch, as the JAX package runs it in XLA for such models), the
+  joint-limit rows (solver.make_rows), then the explicit-row solve +
+  Euler (kernel B3, fused_solver.solve_constraints_euler).
+
+Then position integration on the configuration manifold. CPU tensors
+run the kernels' plain PyTorch twins; CUDA tensors run the kernels.
+Other models (contacts outside B1's family, no constraint rows at all)
+come with slice 4 of the port and raise.
 
 Divergence guard: `StepInfo.diverged` flags non-finite or exploding
 states, and `step` freezes such an environment (qpos kept, qvel zeroed)
@@ -20,10 +31,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import fused_smooth, fused_solver
+from . import engine, fused_smooth, fused_solver
 from . import math as pm
-from .model import JointType, Model, State
-from .solver import contact_dmask, limit_rows_static
+from .model import ActuatorType, JointType, Model, State
+from .solver import contact_dmask, limit_rows_static, make_rows
 
 _QVEL_LIMIT = 1e4
 
@@ -70,19 +81,30 @@ def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt
     return torch.cat(cols, dim=-1)
 
 
-def _check(m: Model, qpos: torch.Tensor, ift: bool):
+def _check(m: Model, qpos: torch.Tensor, ift: bool) -> bool:
+    """Validate the call; True for B1's family, False for the explicit-
+    row path."""
     if ift:
         raise NotImplementedError(
             "step(ift=True), the implicit-function derivative path, comes "
             "with slice 5 of the port")
-    if not fused_smooth.supported(m):
-        raise NotImplementedError(
-            "this model is outside the kernel family (capsules, boxes, "
-            "tendons, ball joints, fluid, gravcomp, site actuators); its "
-            "step comes with slice 4 of the port")
     if qpos.dtype != m.dtype or qpos.device != m.device:
         raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
                          f"match the model ({m.dtype}, {m.device})")
+    if fused_smooth.supported(m):
+        return True
+    s = m.struct
+    if m.ncon or s.ntendon or s.has_gravcomp or any(
+            t == ActuatorType.SITE_THRUST for t in s.act_type):
+        raise NotImplementedError(
+            "this model is outside the kernel family (capsules, boxes, "
+            "tendons, gravcomp, site actuators); its step comes with "
+            "slice 4 of the port")
+    if not m.static("lim_tab", lambda: limit_rows_static(m)):
+        raise NotImplementedError(
+            "a model without contact slots or constraint rows (Acrobot, "
+            "Particle) takes the solver-free step of slice 4 of the port")
+    return False
 
 
 def step(m: Model, state: State, ctrl: torch.Tensor,
@@ -90,17 +112,31 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
          ift: bool = False) -> Tuple[State, StepInfo]:
     """Semi-implicit Euler with implicit joint damping (mj_Euler analog)
     on a batch: state (B, ...), ctrl (B, nu), xfrc (B, nbody, 6)."""
-    _check(m, state.qpos, ift)
+    kernel_family = _check(m, state.qpos, ift)
     h = m.dt
     qpos, qvel = state.qpos, state.qvel
-    (M, qfrc_smooth, cdof, rel, nrm, dist, mu3, kc, bc, dc,
-     lpos, kl, bl, dl, xpos, xquat, xipos, bcv, sitex, anchor,
-     com_vel, actf) = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
-    lim_tab = m.static("lim_tab", lambda: limit_rows_static(m))
-    qacc, qvel_new, cf, qfrc_constraint = fused_solver.solve_step_raw(
-        M, qfrc_smooth, qvel, cdof, rel, nrm, dist, mu3, contact_dmask(m),
-        kc, bc, dc, lpos, kl, bl, dl, h * m.dof_damping, h,
-        lim_tab=lim_tab, niter=solver_iters)
+    if kernel_family:
+        (M, qfrc_smooth, cdof, rel, nrm, dist, mu3, kc, bc, dc,
+         lpos, kl, bl, dl, xpos, xquat, xipos, bcv, sitex, anchor,
+         com_vel, actf) = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
+        lim_tab = m.static("lim_tab", lambda: limit_rows_static(m))
+        qacc, qvel_new, cf, qfrc_constraint = fused_solver.solve_step_raw(
+            M, qfrc_smooth, qvel, cdof, rel, nrm, dist, mu3,
+            contact_dmask(m), kc, bc, dc, lpos, kl, bl, dl,
+            h * m.dof_damping, h, lim_tab=lim_tab, niter=solver_iters)
+    else:
+        kin, vel, M, qfrc_smooth = engine.prepare_smooth(m, qpos, qvel, ctrl,
+                                                         xfrc)
+        rows = make_rows(m, qpos)
+        qacc, qvel_new, _, qfrc_constraint = \
+            fused_solver.solve_constraints_euler(
+                M, qfrc_smooth, qvel, rows.J, rows.pos, rows.k, rows.b,
+                rows.d, h * m.dof_damping, h, niter=solver_iters)
+        xpos, xquat, xipos = kin.xpos, kin.xquat, kin.xipos
+        sitex, anchor, com_vel = kin.site_xpos, kin.anchor, vel.com_vel
+        bcv = engine.body_com_velocities(kin, vel)
+        dist = cf = qpos.new_zeros((qpos.shape[0], 0))
+        actf = engine.actuator_force(m, qpos, qvel, ctrl)
     qpos_new = integrate_pos(m, qpos, qvel_new, h)
     diverged = (~torch.isfinite(qacc).all(dim=-1)
                 | (qvel.abs().amax(dim=-1) > _QVEL_LIMIT)

@@ -5,13 +5,16 @@ Counterpart of humanoid_mujoco_tpu/tasks/base.py:
     -> total = Σ_k cost_k -> optional risk transform
        (exp(risk * total) - 1) / risk.
 Term structure is static; weights, norm parameters, task parameters and
-risk are tensors. Residual functions work on a batch.
+risk are tensors. Residual functions work on a batch. A task may carry
+mocap goal bodies (named positions and orientations its residual reads),
+modes, and a transition that moves them between control steps
+(Task::Transition).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -47,6 +50,18 @@ class Task:
     norm_params: torch.Tensor   # (nterm, 2) (p, q) per term
     params: torch.Tensor        # (nparam,)
     risk: torch.Tensor          # ()
+    # transition_fn(task, m, state, info) -> Task, run after a sim step;
+    # mode_names name the values of `mode` (SetMode / GetMode)
+    transition_fn: Optional[Callable] = None
+    mode_names: Tuple[str, ...] = ("default",)
+    mode: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.tensor(0, dtype=torch.int32))
+    # mocap goal bodies: names, positions (nmocap, 3), quats (nmocap, 4)
+    mocap_names: Tuple[str, ...] = ()
+    mocap_pos: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((0, 3)))
+    mocap_quat: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((0, 4)))
 
     @property
     def nres(self) -> int:
@@ -60,10 +75,41 @@ class Task:
                  ctrl: torch.Tensor) -> torch.Tensor:
         return self.residual_fn(m, self, state, info, ctrl)
 
+    def set_mocap(self, name: str, pos=None, quat=None) -> "Task":
+        """SetMocap verb: a copy with mocap body `name` moved."""
+        i = self.mocap_names.index(name)
+        t = self
+        if pos is not None:
+            mp = t.mocap_pos.clone()
+            mp[i] = torch.as_tensor(pos, dtype=mp.dtype, device=mp.device)
+            t = dataclasses.replace(t, mocap_pos=mp)
+        if quat is not None:
+            mq = t.mocap_quat.clone()
+            mq[i] = torch.as_tensor(quat, dtype=mq.dtype, device=mq.device)
+            t = dataclasses.replace(t, mocap_quat=mq)
+        return t
+
+    def set_mode(self, mode) -> "Task":
+        """SetMode verb: mode by index or name."""
+        if isinstance(mode, str):
+            mode = self.mode_names.index(mode)
+        return dataclasses.replace(self, mode=torch.as_tensor(
+            mode, dtype=torch.int32, device=self.mode.device))
+
+    def transition(self, m: Model, state: State, info: StepInfo) -> "Task":
+        """Per-step task transition (Task::Transition): the task with its
+        goals or mode moved, or itself when it has no transition."""
+        if self.transition_fn is None:
+            return self
+        return self.transition_fn(self, m, state, info)
+
 
 def make_task(name: str, terms, residual_fn, weights, norm_params=None,
-              params=(), param_names=(), risk=0.0, dtype=torch.float32,
+              params=(), param_names=(), risk=0.0, transition_fn=None,
+              mode_names=("default",), mocap=None, dtype=torch.float32,
               device=None) -> Task:
+    """A Task on `device`. `mocap` maps a goal body's name to its
+    position (3,) or to (position, quaternion)."""
     dev = resolve_device(device)
     nterm = len(terms)
 
@@ -72,10 +118,22 @@ def make_task(name: str, terms, residual_fn, weights, norm_params=None,
 
     npz = (torch.zeros((nterm, 2), dtype=dtype, device=dev)
            if norm_params is None else t(norm_params).reshape(nterm, 2))
+    mocap = mocap or {}
+    mpos = torch.zeros((len(mocap), 3), dtype=dtype, device=dev)
+    mquat = t([1.0, 0.0, 0.0, 0.0]).repeat(len(mocap), 1)
+    for i, v in enumerate(mocap.values()):
+        posquat = isinstance(v, tuple) and len(v) == 2
+        mpos[i] = t(v[0] if posquat else v)
+        if posquat:
+            mquat[i] = t(v[1])
     return Task(name=name, terms=tuple(terms), residual_fn=residual_fn,
                 param_names=tuple(param_names), weights=t(weights),
                 norm_params=npz, params=t(list(params)).reshape(-1),
-                risk=t(risk))
+                risk=t(risk), transition_fn=transition_fn,
+                mode_names=tuple(mode_names),
+                mode=torch.tensor(0, dtype=torch.int32, device=dev),
+                mocap_names=tuple(mocap), mocap_pos=mpos,
+                mocap_quat=mquat)
 
 
 def cost_terms(task: Task, residual: torch.Tensor) -> torch.Tensor:

@@ -37,14 +37,16 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
-print(json.dumps([len(names), bad]))
+print(json.dumps([names, bad]))
 """
     out = subprocess.run([sys.executable, "-I", "-c", code],
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
-    count, bad = json.loads(out.stdout.strip().splitlines()[-1])
-    assert count >= 17, out.stdout
+    names, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 20, out.stdout
+    for mod in ("mpc", "tasks.registry", "tasks.swimmer"):
+        assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
 
 

@@ -1,8 +1,9 @@
 """The PyTorch port's CPU parity suite, as one collected test.
 
 The checks live in the other tests/test_torch_*.py modules: math and
-ops, the model, the twins of the two CUDA kernels, the step, rollouts
-and the sampling planner, each against the JAX package on the same
+ops, the model, the twins of the three CUDA kernels, the step, rollouts
+and the sampling planner, the Swimmer's constraint stage, step, rollout,
+transition and MPC loop, each against the JAX package on the same
 numpy-seeded inputs, and the port's import isolation. This test runs
 them all. The kernels themselves are checked on the card by
 chip_smoke.py.
@@ -13,35 +14,44 @@ number of collected items, and more than one added item moves the
 seed's 500-3000 s tests onto other workers (ROADMAP.md, "Keep the count
 of collected test items small").
 
-The two slow JAX references (the jitted sampling plan, about 40 s, and
-the eager kernel-path step, about 22 s) are built in two more threads
-while the other checks run: XLA compiles outside the GIL, and JAX keeps
-`disable_jit` per thread. Both are cached, so the checks that read them
-reuse the result.
+The four slow JAX references (the Swimmer's jitted step, rollout and
+MPC loop, about 100 s; the jitted sampling plan, about 40 s; kernel B3's
+program in interpret mode, about 30 s; the eager kernel-path step, about
+22 s) are built in four more threads while the other checks run: XLA
+compiles outside the GIL, and JAX keeps `disable_jit` per thread. All
+are cached, so the checks that read them reuse the result.
 """
 
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+import test_torch_constraints
 import test_torch_fused_smooth
 import test_torch_import
 import test_torch_math
 import test_torch_model
 import test_torch_rollout
 import test_torch_step
+import test_torch_swimmer
 
 torch.set_num_threads(1)
 
 
 def test_port_matches_jax():
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        swimmer = pool.submit(test_torch_swimmer.jax_swimmer)
         plan = pool.submit(test_torch_rollout.jax_plan)
+        b3 = pool.submit(test_torch_constraints.jax_b3_interpret)
         composition = pool.submit(test_torch_step.jax_composition)
         for module in (test_torch_math, test_torch_model, test_torch_import,
                        test_torch_fused_smooth):
             module.run_checks()
         composition.result()
         test_torch_step.run_checks()
+        b3.result()
+        test_torch_constraints.run_checks()
         plan.result()
-    test_torch_rollout.run_checks()
+        test_torch_rollout.run_checks()
+        swimmer.result()
+    test_torch_swimmer.run_checks()

@@ -1,13 +1,17 @@
-"""Where one step of the port's stand rollout spends its time, on the GPU.
+"""Where one step of a port rollout spends its time, on the GPU.
 
-Runs the chip_smoke.py headline rollout (`chip_smoke.headline`: stand
-task, batch 1024, spline policy) for a few steps under torch.profiler
-and prints, per step: the wall time (CUDA events), the device time of
-each kernel name, the number of kernel launches, and the device idle
-share (1 - device busy / wall), which is the launch and host overhead
-of the eager loop.
+Runs a chip_smoke.py rollout for a few steps under torch.profiler and
+prints, per step: the wall time (CUDA events), the device time of each
+kernel name, the number of kernel launches, and the device idle share
+(1 - device busy / wall), which is the launch and host overhead of the
+eager loop. `--task` picks the rollout:
 
-    python tools/torch_profile.py [--batch 1024] [--steps 20]
+- "Humanoid Cap Stand" (default): `chip_smoke.headline`, the stand task
+  under a zero-order spline (kernels B1 + B2);
+- "Swimmer": `chip_smoke.swimmer_rollout`, Swimmer states under a linear
+  spline of random controls (plain smooth stage + kernel B3).
+
+    python tools/torch_profile.py [--task Swimmer] [--batch 1024] [--steps 20]
 
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -30,6 +34,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--task", default="Humanoid Cap Stand",
+                    choices=["Humanoid Cap Stand", "Swimmer"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_profile: needs a CUDA device")
@@ -40,11 +46,15 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import headline
-    from humanoid_mujoco_torch.physics import humanoid
+    from chip_smoke import headline, swimmer_rollout
+    from humanoid_mujoco_torch.tasks import task_model
 
     B, T = args.batch, args.steps
-    _, rollout = headline(humanoid.build_humanoid(), B, T)
+    m = task_model(args.task)
+    if args.task == "Swimmer":
+        rollout = swimmer_rollout(m, B, T)
+    else:
+        _, rollout = headline(m, B, T)
 
     def run():
         return rollout().total_return
@@ -72,7 +82,8 @@ def main():
     busy_ms = sum(r[2] for r in rows) / 1e3 / T
     launches = sum(r[1] for r in rows) / T
     print(json.dumps({
-        "batch": B, "steps": T, "wall_ms_per_step": wall_ms,
+        "task": args.task, "batch": B, "steps": T,
+        "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
         "kernel_launches_per_step": launches,
