@@ -9,8 +9,11 @@ csrc/euler.cu, one nvcc each for sm_90a, started together) and drives
 the port's two paths:
 
 - the humanoid (kernels B1 + B2): each kernel and the whole step against
-  the plain PyTorch twins on the card, the 1024 x 100 stand rollout and
-  three 1024-sample predictive-sampling plans;
+  the plain PyTorch twins on the card (B = 1024, an odd B = 300, and B2
+  also at B = 1); B2's bitwise repeat, the isolation of a NaN env (only
+  it diverges, the others keep their bits) and its refusal of a model
+  too large for a block's shared memory; the 1024 x 100 stand rollout
+  and three 1024-sample predictive-sampling plans;
 - the Swimmer (plain smooth stage + kernel B3): B3 against its twin on
   Swimmer states (B = 1024 and an odd B = 300) and against B2 on the
   humanoid's 694 explicit rows, the whole step against the twin
@@ -18,7 +21,9 @@ the port's two paths:
   toward a target with the task's transition on.
 
 Each path is driven with the kernels' launch counters set to 0 just
-before it and read just after. It prints a `kernels` JSON line (time,
+before it and read just after. The `environment` line carries B2's
+occupancy (shared bytes per env and per block, blocks per SM, registers
+and spills). It prints a `kernels` JSON line (time,
 launch count, plain-twin time and roofline bound per kernel). The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
@@ -211,14 +216,91 @@ def bound(nbytes, flops):
     return max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
-def kernel_edges(m, device, B=300):
-    """Both kernels at a batch that is not a multiple of the 128-thread
-    block, B1 with per-body wrenches; on the card, the inputs the
-    wrappers must refuse. Returns the max relative error per kernel."""
-    from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
-                                               humanoid)
+def solver_vs_twin(m, B, seed):
+    """B2 against its twin at batch B on `states` (numpy seed), both fed
+    the twin's B1 outputs. Returns the max relative error."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
     from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                       limit_rows_static)
+    qpos, qvel, ctrl = states(m, B, seed=seed)
+    ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl)
+    lim_tab = limit_rows_static(m)
+    args = (ref[0], ref[1], qvel, *ref[2:7], contact_dmask(m), *ref[7:14],
+            m.dt * m.dof_damping, m.dt)
+    return max(rel_err(r, o) for r, o in zip(
+        fused_solver.solve_step_raw_reference(*args, lim_tab=lim_tab),
+        fused_solver.solve_step_raw(*args, lim_tab=lim_tab)))
+
+
+def solver_isolation(m, solve_in, lim_tab, env=7):
+    """B2 on the main states (B = 1024): two launches give the same
+    bits; a NaN in one env's qvel makes that env's qacc and qvel_new
+    non-finite, so that `step` flags it as diverged, and leaves every
+    other env's outputs bitwise unchanged."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    first = fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
+    again = fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+        "B2 differs between two launches on the same inputs"
+    qv = solve_in[2].clone()
+    qv[env, 3] = float("nan")
+    poisoned = fused_solver.solve_step_raw(*solve_in[:2], qv, *solve_in[3:],
+                                           lim_tab=lim_tab)
+    B = qv.shape[0]
+    rest = torch.arange(B, device=qv.device) != env
+    assert not bool(torch.isfinite(poisoned[0][env]).all()), "qacc finite"
+    assert not bool(torch.isfinite(poisoned[1][env]).all()), \
+        "qvel_new finite"
+    assert all(torch.equal(a[rest], b[rest])
+               for a, b in zip(first, poisoned)), \
+        "a NaN env changed another env's outputs"
+    qpos, qvel, ctrl = states(m, B)
+    qvel[env, 3] = float("nan")
+    _, info = step(m, make_state(m, qpos=qpos, qvel=qvel), ctrl)
+    flagged = info.diverged.nonzero().flatten().tolist()
+    assert flagged == [env], flagged
+    return {"bitwise_repeat": True, "nan_env": env, "diverged": flagged,
+            "others_bitwise_equal": True}
+
+
+def solver_refuses_oversize(m, device, slots=2000):
+    """A model whose per-env working set exceeds a block's shared memory
+    (`slots` contact slots over all dofs) is refused with ValueError
+    before any launch. Returns the bytes it would need."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    nv, lim_tab = m.nv, limit_rows_static(m)
+    nlim = len(lim_tab)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    args = (torch.eye(nv, device=device)[None], z(1, nv), z(1, nv),
+            z(1, nv, 6), z(1, slots, 3), z(1, slots, 3), z(1, slots),
+            z(1, slots, 3), torch.ones((slots, nv), device=device),
+            z(1, slots), z(1, slots), z(1, slots), z(1, nlim), z(1, nlim),
+            z(1, nlim), z(1, nlim), m.dt * m.dof_damping, m.dt)
+    n = fused_solver.LAUNCHES
+    try:
+        fused_solver.solve_step_raw(*args, lim_tab=lim_tab)
+    except ValueError as e:
+        assert "bytes of shared memory" in str(e), e
+    else:
+        raise AssertionError("an oversize model was not refused")
+    assert fused_solver.LAUNCHES == n
+    return fused_solver.solver_smem_bytes(nv, slots, nlim, slots * nv)
+
+
+def kernel_edges(m, device, solve_in, lim_tab, B=300):
+    """Both kernels at a batch that is not a multiple of a block (B1's
+    128 threads, B2's 4 envs), B1 with per-body wrenches; B2 alone at
+    B = 1 and, on the main states, its bitwise repeat and the isolation
+    of a NaN env; on the card, the inputs the wrappers must refuse.
+    Returns the max relative error per kernel and the checks' results."""
+    from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
+                                               humanoid)
+    from humanoid_mujoco_torch.physics.solver import contact_dmask
     qpos, qvel, ctrl = states(m, B, seed=2)
     rng = np.random.default_rng(3)
     xfrc = torch.tensor(rng.standard_normal((B, m.struct.nbody, 6)),
@@ -227,14 +309,19 @@ def kernel_edges(m, device, B=300):
     ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl, xfrc)
     e1 = max(rel_err(r, o, n)
              for n, r, o in zip(fused_smooth.NAMES, ref, ker))
-    lim_tab = limit_rows_static(m)
     args = (ref[0], ref[1], qvel, *ref[2:7], contact_dmask(m), *ref[7:14],
             m.dt * m.dof_damping, m.dt)
     e2 = max(rel_err(r, o) for r, o in zip(
         fused_solver.solve_step_raw_reference(*args, lim_tab=lim_tab),
         fused_solver.solve_step_raw(*args, lim_tab=lim_tab)))
-    assert e1 <= TOL and e2 <= TOL, (e1, e2)
+    e2_one = solver_vs_twin(m, 1, seed=4)
+    assert e1 <= TOL and e2 <= TOL and e2_one <= TOL, (e1, e2, e2_one)
+    out = {"batch": B, "smooth_xfrc_rel_err": e1, "solver_rel_err": e2,
+           "solver_rel_err_batch_1": e2_one}
     if device != "cpu":
+        out["solver_isolation"] = solver_isolation(m, solve_in, lim_tab)
+        out["solver_oversize_bytes_refused"] = solver_refuses_oversize(
+            m, device)
         expect_error(TypeError, lambda: fused_smooth.smooth_raw(
             m, qpos.double(), qvel.double(), ctrl.double()))
         expect_error(ValueError, lambda: fused_smooth.smooth_raw(
@@ -246,7 +333,7 @@ def kernel_edges(m, device, B=300):
             *[a.double() for a in args[:16]], *args[16:], lim_tab=lim_tab))
         expect_error(ValueError, lambda: fused_solver.solve_step_raw(
             *args[:3], args[3][:, :5], *args[4:], lim_tab=lim_tab))
-    return {"batch": B, "smooth_xfrc_rel_err": e1, "solver_rel_err": e2}
+    return out
 
 
 def headline(m, B, horizon):
@@ -643,7 +730,8 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     assert not bool(info_k.diverged.any()), "step diverged"
 
     # ---- 4b. odd batch, wrenches, refused inputs ----
-    log("kernel_edges", tol=TOL, **kernel_edges(m, device))
+    log("kernel_edges", tol=TOL,
+        **kernel_edges(m, device, solve_in, lim_tab))
 
     # ---- 5. headline: the bench.py rollout (stand task, spline policy) ----
     task, rollout = headline(m, B, horizon)
@@ -757,8 +845,16 @@ def main():
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in kernels.BUILD_LOG.items()}
+    from humanoid_mujoco_torch.physics import fused_solver, humanoid
+    from humanoid_mujoco_torch.physics.solver import (contact_dmask,
+                                                      limit_rows_static)
+    hm = humanoid.build_humanoid(device="cuda")
+    occupancy = fused_solver.solver_occupancy(
+        hm.nv, hm.ncon, len(limit_rows_static(hm)),
+        len(fused_solver.chain_layout(contact_dmask(hm))[1]))
     log("environment", gpu=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
+        solver_occupancy=occupancy,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)

@@ -2,11 +2,17 @@
 // humanoid step (smooth.cu, solver.cu) and of the explicit-row solve
 // (euler.cu).
 //
-// Layout: one thread per environment, batch-last. Every per-env array
-// (inputs, outputs, scratch) is stored [..., B], so element i of env e
-// lives at p[i * B + e] and the 32 threads of a warp touch 32
-// neighbouring floats. `In` / `Out` are such strided views, already
-// offset to one environment.
+// Layout of the inputs and outputs: batch-last. Every per-env array is
+// stored [..., B], so element i of env e lives at p[i * B + e]. `In` /
+// `Out` are such strided views, already offset to one environment.
+//
+// Two ways to spread the work. One thread per environment (smooth.cu,
+// euler.cu): the 32 threads of a warp touch 32 neighbouring floats, and
+// `chol` / `chol_solve` run serially in that thread. One warp per
+// environment (solver.cu): the env's working set sits in shared memory
+// and the warp helpers at the end of this file spread a factorization,
+// a triangular solve or a sum over the 32 lanes, always in a fixed
+// order, so that two launches on the same inputs agree to the bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -187,6 +193,107 @@ __device__ inline void chol_solve(const Out& L, int n, const Out& x) {
     for (int k = i + 1; k < n; ++k) s -= L[k * n + i] * x[k];
     x[i] = s / L[i * n + i];
   }
+}
+
+// ---- one warp per environment ----
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// Sum of v over the 32 lanes by an xor butterfly: a fixed order, and
+// every lane gets the same bits (a + b == b + a in IEEE arithmetic).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// In-place lower Cholesky of the n x n matrix A in shared memory (row
+// stride ld, lower triangle read and written), n <= 32, by the whole
+// warp, two columns at a time: lane i takes the dot products of row i
+// with rows j and j + 1 over the finished columns k < j, finishes column
+// j, subtracts l_ij l_(j+1)j from column j + 1 and finishes it, so that
+// one round of shared-memory loads and one __syncwarp serve two columns.
+// Pivots are clamped at EPS_CHOL (`mx` keeps a NaN, so a diverged env
+// stays NaN). Also writes inv[j] = 1 / L_jj for the solves.
+__device__ inline void warp_chol(float* A, int n, int ld, float* inv) {
+  const int i = lane_id();
+  const float* ai = A + min(i, n - 1) * ld;  // lanes >= n discard theirs
+  for (int j = 0; j < n; j += 2) {
+    const int j1 = j + 1 < n ? j + 1 : j;
+    const float* aj = A + j * ld;
+    const float* aj1 = A + j1 * ld;
+    float t0 = 0.0f, t1 = 0.0f, u0 = 0.0f, u1 = 0.0f;
+    int k = 0;
+    for (; k + 2 <= j; k += 2) {
+      const float a0 = ai[k], a1 = ai[k + 1];
+      t0 -= a0 * aj[k];
+      u0 -= a0 * aj1[k];
+      t1 -= a1 * aj[k + 1];
+      u1 -= a1 * aj1[k + 1];
+    }
+    if (k < j) {
+      t0 -= ai[k] * aj[k];
+      u0 -= ai[k] * aj1[k];
+    }
+    const float t = ai[j] + (t0 + t1);
+    const float s = mx(__shfl_sync(FULL_MASK, t, j), EPS_CHOL);
+    const float r = rsqrtf(s);
+    const float lj = i == j ? s * r : t * r;
+    const float u = ai[j1] + (u0 + u1) - lj * __shfl_sync(FULL_MASK, lj, j1);
+    const float s1 = mx(__shfl_sync(FULL_MASK, u, j1), EPS_CHOL);
+    const float r1 = rsqrtf(s1);
+    if (i >= j && i < n) A[i * ld + j] = lj;
+    if (i == j) inv[j] = r;
+    if (j1 > j && i >= j1 && i < n) A[i * ld + j1] = i == j1 ? s1 * r1 : u * r1;
+    if (j1 > j && i == j1) inv[j1] = r1;
+    __syncwarp();
+  }
+}
+
+// (L Lᵀ)⁻¹ b for the warp's factor L and inverse diagonal `inv` from
+// `warp_chol`: lane i holds b_i on entry and x_i on return (lanes >= n
+// hold 0). Forward and backward substitution one unknown at a time,
+// broadcast by a shuffle; branch-free, so that the warp never splits.
+__device__ inline float warp_chol_solve(const float* L, const float* inv,
+                                        int n, int ld, float b) {
+  const int i = lane_id();
+  const int row = min(i, n - 1);
+  if (i >= n) b = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const float yk = __shfl_sync(FULL_MASK, b, k) * inv[k];
+    const float lik = L[row * ld + k];
+    b = i == k ? yk : (i > k && i < n ? b - lik * yk : b);
+  }
+  for (int k = n - 1; k >= 0; --k) {
+    const float xk = __shfl_sync(FULL_MASK, b, k) * inv[k];
+    const float lki = L[k * ld + min(i, k)];
+    b = i == k ? xk : (i < k ? b - lki * xk : b);
+  }
+  return b;
+}
+
+// Li = L⁻¹ (lower triangle, row stride ld; the upper triangle is left
+// as it is) for the warp's factor from `warp_chol`: lane i substitutes
+// column i. With it, y = L⁻¹ b for a sparse b is a sum of independent
+// products instead of a dependent chain.
+__device__ inline void warp_tri_inv(const float* L, const float* inv, int n,
+                                    int ld, float* Li) {
+  const int i = lane_id();
+  if (i < n) {
+    for (int k = i; k < n; ++k) {
+      float s0 = k == i ? 1.0f : 0.0f, s1 = 0.0f;
+      int m = i;
+      for (; m + 2 <= k; m += 2) {
+        s0 -= L[k * ld + m] * Li[m * ld + i];
+        s1 -= L[k * ld + m + 1] * Li[(m + 1) * ld + i];
+      }
+      if (m < k) s0 -= L[k * ld + m] * Li[m * ld + i];
+      Li[k * ld + i] = (s0 + s1) * inv[k];
+    }
+  }
+  __syncwarp();
 }
 
 }  // namespace hm

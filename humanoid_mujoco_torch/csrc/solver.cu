@@ -1,36 +1,68 @@
 // Kernel B2: contact rows + Newton contact solve + implicit-damping Euler,
-// one thread per env.
+// one warp per environment, the environment's working set in shared
+// memory.
 //
 // Replaces the TPU kernel humanoid_mujoco_tpu/physics/pallas_solver.py
 // `_rows_kernel` + `_solve_core_pyramid` (launched by
 // `fused_rows_batched`). Per environment: the branch-free tangent frame
 // of every contact slot; the six base Jacobian rows per slot
-// [Jn, Jt1, Jt2, Js, Jr1, Jr2] from cdof × rel, masked by the static
-// (K, nv) chain mask; the condim-6 pyramid Newton solve factorized on
-// those base rows (Cholesky of M, diag(J M⁻¹ Jᵀ) through explicit M⁻¹,
-// D and aref from the impedance, then `niter` iterations of active set,
-// gradient, H = M + Jᵀ Da J, Cholesky, search direction and the line
-// search on the grid {0} ∪ logspace(-3, log10 4, 15) with sign-crossing
-// interpolation); the per-slot normal force; qfrc_constraint = Jᵀ f; and
-// the Euler update (M + h diag(damping)) dv = h (qfrc_smooth + qfrc_c).
-// Constants as in the TPU kernel: Cholesky clamp 1e-12, 1e-9 norm guard.
+// [Jn, Jt1, Jt2, Js, Jr1, Jr2] from cdof × rel over the slot's chain dofs
+// (the static (K, nv) chain mask, ±1 or 0); the condim-6 pyramid Newton
+// solve factorized on those base rows (Cholesky of M, diag(J M⁻¹ Jᵀ) and
+// the Gram cross terms from y = L⁻¹ Jᵀ, D and aref from the impedance,
+// then `niter` iterations of active set, gradient, H = M + Jᵀ Da J,
+// Cholesky, search direction and the line search on the grid
+// {0} ∪ logspace(-3, log10 4, 15) with sign-crossing interpolation); the
+// per-slot normal force; qfrc_constraint = Jᵀ f; and the Euler update
+// (M + h diag(damping)) dv = h (qfrc_smooth + qfrc_c). Constants as in
+// the TPU kernel: Cholesky clamp 1e-12, 1e-9 norm guard, 1e-10 on
+// diag(J M⁻¹ Jᵀ), 1e-4 / 1e-6 in D.
 //
 // What bounds it on the H100: at B = 1024 on stand states it moves
-// ~6.4 MB of inputs and outputs, and the algorithm needs ~0.26 MFLOP per
-// env (chip_smoke.solve_cost counts it from the twin's active sets; ~4 us
-// at the fp32 peak), so neither bytes nor FLOPs bound it: one thread per env
-// leaves most SMs idle (8 blocks of 128 threads at B = 1024), and each
-// thread runs a long dependent chain of small Cholesky factorizations.
+// ~6.4 MB of inputs and outputs and the algorithm needs ~0.26 MFLOP per
+// env (chip_smoke.solve_cost counts it from the twin's active sets), so
+// the card's bound is ~4 us, set by operations. What bounds this kernel
+// is the serial chain inside one environment: 10 Cholesky factorizations
+// of 18 columns and 9 pairs of 18-step triangular solves, each step a
+// shuffle, a reciprocal square root and a shared-memory round trip that
+// the next step waits for (~400 cycles a column), and around them ~30
+// passes over slots, dofs or matrix entries whose shared-memory loads
+// the 8 warps of an SM barely hide (tools/solver_phases.py prints the
+// cycles of each phase).
 //
-// What the design does about it: the simple design. Base rows are not
-// stored for all slots (6 x 67 x 18 floats per env); each pass recomputes
-// one slot's rows from cdof, rel and its frame into a small batch-last
-// scratch, and skips dofs outside the slot's chain mask (uniform across
-// the warp, since the mask is static). Slots with no active edge skip the
-// gradient and Hessian updates, and edges that cannot become active skip
-// the line search. All per-env scratch is wrapper-allocated and
-// batch-last; the kernel allocates nothing. Spreading one env over a warp
-// is later work.
+// What the design does about it (the earlier one-thread-per-env kernel
+// put 8 blocks on 132 SMs and kept every intermediate in global scratch):
+// - one warp per env, `envs` warps per block (4 on the humanoid), so
+//   B = 1024 is 1024 warps over all SMs, all resident at once (2 blocks
+//   of ~107 KB per SM);
+// - the env's working set lives in dynamic shared memory, carved by
+//   `make_layout` (mirrored by fused_solver.solver_smem_bytes): M, the
+//   factor / Hessian, the six base rows of every slot compressed over
+//   its chain dofs (6 x 376 floats on the humanoid), D, aref and the
+//   residuals of the 670 pyramid edges, and a work area for L⁻¹, the
+//   active slots' coefficients and the line search's J p. Inputs are
+//   read from the batch-last arrays once; nothing per env is left in
+//   global memory;
+// - lanes spread each phase: over slots for the rows, the Gram terms, the
+//   residuals and the active set (compacted in slot order with
+//   __ballot_sync); over dofs for the gradient; over the lower-triangle
+//   entries of H, each lane holding its entries in registers while the
+//   active slots stream past; over the rows of a column for the Cholesky
+//   and the solves (common.cuh warp_chol / warp_chol_solve); over
+//   (edge, grid point) pairs for the line search, two edges at a time;
+// - L⁻¹ is formed once (warp_tri_inv, a lane per column), so that each
+//   slot's y = L⁻¹ Jᵀ over its ≤ 9 chain dofs is a sum of independent
+//   products, six rows at once, instead of a dependent substitution; the
+//   explicit M⁻¹ columns of the earlier kernel are gone;
+// - every sum runs in a fixed order (slot order, then a fixed warp
+//   butterfly), with no atomics, so two launches on the same inputs give
+//   the same bits, and plans and the simulation see the same arithmetic;
+// - fp32 on the CUDA cores: the matrices are 18 x 18 per env, far below a
+//   tensor-core tile, and TF32 would keep ~3 digits where the solve
+//   needs fp32;
+// - a NaN input stays NaN (`mx` keeps it, and a slot with a NaN residual
+//   counts as touched, as the twin's Da r does), so the step's
+//   divergence guard sees a diverged env; other envs are untouched.
 
 #include "common.cuh"
 
@@ -39,402 +71,630 @@ using namespace hm;
 namespace {
 
 constexpr int LS_MAX = 16;  // capacity of the line-search grid
+constexpr int NV_MAX = 32;  // one lane per dof in the warp solves
+// lower-triangle entries of H per lane
+constexpr int TRI_LANE = (NV_MAX * (NV_MAX + 1) / 2 + 31) / 32;
+constexpr int ENVS_MAX = 8;  // warps per block
+constexpr int NCO = 17;     // gradient / Hessian coefficients of a slot
+// offsets within one active slot's NCO coefficients
+constexpr int CO_Y0 = 0, CO_Z = 1, CO_C0 = 6, CO_CI = 7, CO_CII = 12;
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Dynamic shared memory of one block: the static tables (slot offsets
+// into the compressed rows, each compressed entry's dof, each (slot, dof)
+// position in its slot's chain or -1, the lower-triangle (u, w) pairs),
+// then one region of `env` floats per warp.
+struct Layout {
+  int ld;           // row stride of the nv x nv matrices (odd)
+  int ntri;         // lower-triangle entries
+  int dof_at, pos_at, tri_at, table_bytes;  // byte offsets of the tables
+  int Mm, H, Jb, De, ar, re, mu, W, Dl, al, rl, vec, act, env;  // floats
+};
+
+__host__ __device__ inline Layout make_layout(int nv, int K, int nlim,
+                                              int C) {
+  Layout L;
+  L.ld = nv | 1;
+  L.ntri = nv * (nv + 1) / 2;
+  L.dof_at = 4 * (K + 1);
+  L.pos_at = L.dof_at + C;
+  L.tri_at = round_up(L.pos_at + K * nv, 2);
+  L.table_bytes = round_up(L.tri_at + 2 * L.ntri, 16);
+  int o = 0;
+  L.Mm = o;
+  o += nv * L.ld;
+  L.H = o;
+  o += nv * L.ld;
+  L.Jb = o;
+  o += 6 * C;
+  L.De = o;
+  o += 10 * K;
+  L.ar = o;
+  o += 10 * K;
+  L.re = o;
+  o += 10 * K;
+  L.mu = o;
+  o += 3 * K;
+  int w = NCO * K;                        // active slots' coefficients
+  if (10 * K + nlim > w) w = 10 * K + nlim;  // the line search's J p
+  if (nv * L.ld > w) w = nv * L.ld;       // L⁻¹ of M in the setup
+  if (6 * nv > w) w = 6 * nv;             // cdof while the rows are built
+  L.W = o;
+  o += w;
+  L.Dl = o;
+  o += nlim;
+  L.al = o;
+  o += nlim;
+  L.rl = o;
+  o += nlim;
+  L.vec = o;
+  o += 6 * nv;
+  L.act = o;
+  o += K;
+  L.env = round_up(o, 4);
+  return L;
+}
 
 struct SolveArgs {
-  const float *M, *qf, *qv, *cdof, *rel, *nrm, *dist, *mu3, *dmask, *kc, *bc,
-      *dc, *lpos, *kl, *bl, *dl, *hd, *dt;
-  const int *lim_ptr, *lim_dof;
-  const float *lim_coef, *grid;
-  float *qacc, *qvn, *fslot, *qfc, *scratch;
-  int B, nv, K, nlim, niter, nls;
+  const float *M, *qf, *qv, *cdof, *rel, *nrm, *dist, *mu3, *kc, *bc, *dc,
+      *lpos, *kl, *bl, *dl, *hd, *dt;
+  const int *slot_ptr, *slot_dof;
+  const float* slot_sgn;
+  // limit rows: CSR (ptr, dof, coef) with each entry's row, and the
+  // Hessian's pairs of entries of one row, dof_k <= dof_i: the lower-
+  // triangle index of (dof_i, dof_k), the row and c_i c_k
+  const int *lim_ptr, *lim_dof, *lim_row;
+  const float* lim_coef;
+  const int *pair_tri, *pair_row;
+  const float *pair_coef, *grid;
+  float *qacc, *qvn, *fslot, *qfc;
+  int B, nv, K, nlim, C, npair, niter, nls, envs;
 };
 
-struct Ctx {
-  In cdof, rel, nrm;
-  Out fr;  // per-slot frame [t1 (3); t2 (3)] x K
-  const float* dmask;
-  int nv, K;
+__global__ void __launch_bounds__(32 * ENVS_MAX)
+    solve_kernel(SolveArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int B = a.B, nv = a.nv, K = a.K, nlim = a.nlim, C = a.C;
+  const Layout lay = make_layout(nv, K, nlim, C);
+  const int ld = lay.ld;
+  int* soff = reinterpret_cast<int*>(smem);
+  unsigned char* sdof = smem + lay.dof_at;
+  signed char* spos = reinterpret_cast<signed char*>(smem + lay.pos_at);
+  unsigned short* tri =
+      reinterpret_cast<unsigned short*>(smem + lay.tri_at);
 
-  __device__ __forceinline__ float dm(int c, int v) const {
-    return __ldg(dmask + c * nv + v);
+  // ---- the block's static tables ----
+  for (int i = threadIdx.x; i <= K; i += blockDim.x)
+    soff[i] = __ldg(a.slot_ptr + i);
+  for (int i = threadIdx.x; i < C; i += blockDim.x)
+    sdof[i] = (unsigned char)__ldg(a.slot_dof + i);
+  for (int i = threadIdx.x; i < K * nv; i += blockDim.x) spos[i] = -1;
+  for (int t = threadIdx.x; t < lay.ntri; t += blockDim.x) {
+    int u = 0;
+    while ((u + 1) * (u + 2) / 2 <= t) ++u;
+    tri[t] = (unsigned short)((u << 8) | (t - u * (u + 1) / 2));
   }
+  __syncthreads();
+  for (int c = threadIdx.x; c < K; c += blockDim.x)
+    for (int j = soff[c]; j < soff[c + 1]; ++j)
+      spos[c * nv + sdof[j]] = (signed char)(j - soff[c]);
+  __syncthreads();
 
-  // base rows of slot c for dof v: [Jn, Jt1, Jt2, Js, Jr1, Jr2]
-  __device__ __forceinline__ void rows(int c, int v, float dmv,
-                                       float J[6]) const {
-    const V3 w{cdof[6 * v], cdof[6 * v + 1], cdof[6 * v + 2]};
-    const V3 l{cdof[6 * v + 3], cdof[6 * v + 4], cdof[6 * v + 5]};
-    const V3 r{rel[c], rel[K + c], rel[2 * K + c]};
-    const V3 n{nrm[c], nrm[K + c], nrm[2 * K + c]};
-    const V3 t1{fr[c], fr[K + c], fr[2 * K + c]};
-    const V3 t2{fr[3 * K + c], fr[4 * K + c], fr[5 * K + c]};
-    // point jacobian: cdof_lin + cdof_ang × rel, masked to the chain
-    const V3 jp = (l + cross(w, r)) * dmv;
-    const V3 ja = w * dmv;
-    J[0] = dot(jp, n);
-    J[1] = dot(jp, t1);
-    J[2] = dot(jp, t2);
-    J[3] = dot(ja, n);
-    J[4] = dot(ja, t1);
-    J[5] = dot(ja, t2);
-  }
+  const int wid = threadIdx.x >> 5, lane = lane_id();
+  const int e = blockIdx.x * a.envs + wid;
+  if (e >= B) return;  // the ragged last block; no block barrier follows
 
-  // b[a] = J_a(slot c) · x for the 6 base rows; also stores the rows
-  // into Jc (6 x nv) when given
-  template <class View>
-  __device__ void dots(int c, const View& x, float b[6],
-                       const Out* Jc) const {
-    for (int a = 0; a < 6; ++a) b[a] = 0.0f;
-    for (int v = 0; v < nv; ++v) {
-      const float dmv = dm(c, v);
-      if (dmv == 0.0f) {
-        if (Jc)
-          for (int a = 0; a < 6; ++a) (*Jc)[a * nv + v] = 0.0f;
-        continue;
-      }
-      float J[6];
-      rows(c, v, dmv, J);
-      const float xv = x[v];
-      for (int a = 0; a < 6; ++a) {
-        b[a] += J[a] * xv;
-        if (Jc) (*Jc)[a * nv + v] = J[a];
-      }
-    }
-  }
-};
-
-__global__ void __launch_bounds__(128) solve_kernel(SolveArgs a) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int B = a.B;
-  if (e >= B) return;
-  const int nv = a.nv, K = a.K, nlim = a.nlim, nls = a.nls;
-
-  const In Min{a.M + e, B}, qf{a.qf + e, B}, qv{a.qv + e, B},
-      dist{a.dist + e, B}, mu3{a.mu3 + e, B}, kc{a.kc + e, B},
-      bc{a.bc + e, B}, dc{a.dc + e, B}, lpos{a.lpos + e, B},
-      kl{a.kl + e, B}, bl{a.bl + e, B}, dl{a.dl + e, B};
-  const Out qacc{a.qacc + e, B}, qvn{a.qvn + e, B}, fslot{a.fslot + e, B},
-      qfc{a.qfc + e, B};
-
-  Carver cv{a.scratch + e, B, 0};
-  const Out Mm = cv.take(nv * nv), L = cv.take(nv * nv),
-            Minv = cv.take(nv * nv), H = cv.take(nv * nv);
-  const Out as = cv.take(nv), x = cv.take(nv), p = cv.take(nv),
-            g = cv.take(nv), Mx = cv.take(nv), tmp = cv.take(nv);
-  const Out fr = cv.take(6 * K), De = cv.take(10 * K), ar = cv.take(10 * K),
-            re = cv.take(10 * K);
-  const Out Dl = cv.take(nlim), al = cv.take(nlim), rl = cv.take(nlim);
-  const Out Jc = cv.take(6 * nv), PQ = cv.take(6 * nv);
-
-  const Ctx C{In{a.cdof + e, B}, In{a.rel + e, B}, In{a.nrm + e, B}, fr,
-              a.dmask, nv, K};
+  float* S = reinterpret_cast<float*>(smem + lay.table_bytes) + wid * lay.env;
+  float *Mm = S + lay.Mm, *H = S + lay.H, *Jb = S + lay.Jb,
+        *De = S + lay.De, *ar = S + lay.ar, *re = S + lay.re,
+        *mu = S + lay.mu, *W = S + lay.W, *Dl = S + lay.Dl,
+        *al = S + lay.al, *rl = S + lay.rl;
+  float *AS = S + lay.vec, *X = AS + nv, *P = AS + 2 * nv,
+        *QV = AS + 3 * nv, *QF = AS + 4 * nv, *INV = AS + 5 * nv;
+  int* act = reinterpret_cast<int*>(S + lay.act);
   const int* lim_ptr = a.lim_ptr;
   const int* lim_dof = a.lim_dof;
   const float* lim_coef = a.lim_coef;
+  const int nnz = __ldg(lim_ptr + nlim);
+  auto in = [&](const float* p, int i) { return __ldg(p + (size_t)i * B + e); };
 
-  float grid[LS_MAX];
+  // b[a] = J_a(slot c) · x for the six base rows, over the chain dofs in
+  // ascending order
+  auto dots = [&](int c, const float* x, float b[6]) {
 #pragma unroll
-  for (int t = 0; t < LS_MAX; ++t) grid[t] = t < nls ? __ldg(a.grid + t) : 0.f;
-  // r + t jp is linear in t: a row is active somewhere on the grid iff it
-  // is at t = 0 or at the last grid point
-  const float tmax = __ldg(a.grid + nls - 1);
+    for (int r = 0; r < 6; ++r) b[r] = 0.0f;
+    for (int j = soff[c]; j < soff[c + 1]; ++j) {
+      const float xv = x[sdof[j]];
+#pragma unroll
+      for (int r = 0; r < 6; ++r) b[r] += Jb[r * C + j] * xv;
+    }
+  };
+  auto mu5 = [&](int c, float m[5]) {
+    m[0] = m[1] = mu[c];
+    m[2] = mu[K + c];
+    m[3] = m[4] = mu[2 * K + c];
+  };
 
-  // ---- Cholesky of M, unconstrained acceleration, explicit M⁻¹ ----
-  for (int i = 0; i < nv * nv; ++i) {
-    Mm[i] = Min[i];
-    L[i] = Mm[i];
+  // ---- load the env's inputs once ----
+  for (int i = lane; i < nv * nv; i += 32) {
+    const float v = in(a.M, i);
+    Mm[(i / nv) * ld + i % nv] = v;
+    H[(i / nv) * ld + i % nv] = v;
   }
-  chol(L, nv);
-  for (int v = 0; v < nv; ++v) as[v] = qf[v];
-  chol_solve(L, nv, as);
-  for (int u = 0; u < nv; ++u) {
-    for (int v = 0; v < nv; ++v) tmp[v] = v == u ? 1.0f : 0.0f;
-    chol_solve(L, nv, tmp);
-    for (int v = 0; v < nv; ++v) Minv[v * nv + u] = tmp[v];
+  for (int i = lane; i < 6 * nv; i += 32) W[i] = in(a.cdof, i);
+  for (int v = lane; v < nv; v += 32) {
+    QV[v] = in(a.qv, v);
+    QF[v] = in(a.qf, v);
   }
+  for (int i = lane; i < 3 * K; i += 32) mu[i] = in(a.mu3, i);
+  __syncwarp();
 
-  // ---- per slot: tangent frame, diag(J M⁻¹ Jᵀ) per edge, D, aref ----
-  for (int c = 0; c < K; ++c) {
-    const V3 n{C.nrm[c], C.nrm[K + c], C.nrm[2 * K + c]};
+  // ---- lanes over slots: tangent frame and the six base rows ----
+  for (int c = lane; c < K; c += 32) {
+    const V3 n{in(a.nrm, c), in(a.nrm, K + c), in(a.nrm, 2 * K + c)};
+    const V3 r{in(a.rel, c), in(a.rel, K + c), in(a.rel, 2 * K + c)};
     const bool up = fabsf(n.z) > 0.9f;
     const float rx = up ? 1.0f : 0.0f, rz = up ? 0.0f : 1.0f;
     V3 t1{-rz * n.y, rz * n.x - rx * n.z, rx * n.y};
     t1 = t1 * (1.0f / mx(sqrtf(dot(t1, t1)), 1e-9f));
     const V3 t2 = cross(n, t1);
-    fr[c] = t1.x;
-    fr[K + c] = t1.y;
-    fr[2 * K + c] = t1.z;
-    fr[3 * K + c] = t2.x;
-    fr[4 * K + c] = t2.y;
-    fr[5 * K + c] = t2.z;
+    for (int j = soff[c]; j < soff[c + 1]; ++j) {
+      const int v = sdof[j];
+      const float s = __ldg(a.slot_sgn + j);
+      const V3 w{W[6 * v], W[6 * v + 1], W[6 * v + 2]};
+      const V3 l{W[6 * v + 3], W[6 * v + 4], W[6 * v + 5]};
+      // point jacobian: cdof_lin + cdof_ang × rel, signed by the chain
+      const V3 jp = (l + cross(w, r)) * s;
+      const V3 ja = w * s;
+      Jb[j] = dot(jp, n);
+      Jb[C + j] = dot(jp, t1);
+      Jb[2 * C + j] = dot(jp, t2);
+      Jb[3 * C + j] = dot(ja, n);
+      Jb[4 * C + j] = dot(ja, t1);
+      Jb[5 * C + j] = dot(ja, t2);
+    }
   }
-  for (int c = 0; c < K; ++c) {
-    float bq[6];
-    C.dots(c, qv, bq, &Jc);
-    // Gram entries: A_nn, A_nt[t], A_tt[t] over the slot's chain dofs
-    float Ann = 0.0f, Ant[6] = {0}, Att[6] = {0};
-    for (int base = 0; base < 6; ++base) {
-      for (int u = 0; u < nv; ++u) {
-        if (C.dm(c, u) == 0.0f) continue;
-        float y = 0.0f;
-        for (int v = 0; v < nv; ++v)
-          if (C.dm(c, v) != 0.0f) y += Minv[u * nv + v] * Jc[base * nv + v];
-        if (base == 0) {
-          Ann += Jc[u] * y;
-        } else {
-          Ant[base] += Jc[u] * y;
-          Att[base] += Jc[base * nv + u] * y;
-        }
+  __syncwarp();
+
+  // ---- Cholesky of M (in H), unconstrained acceleration, L⁻¹ ----
+  warp_chol(H, nv, ld, INV);
+  {
+    const float as =
+        warp_chol_solve(H, INV, nv, ld, lane < nv ? QF[lane] : 0.0f);
+    if (lane < nv) {
+      AS[lane] = as;
+      X[lane] = as;
+    }
+  }
+  float* Li = W;
+  warp_tri_inv(H, INV, nv, ld, Li);
+
+  // ---- lanes over slots: Gram terms by y = L⁻¹ Jᵀ, then D and aref ----
+  // y_r(k) = sum over the chain dofs v <= k of L⁻¹(k, v) J_r(v): for all
+  // six base rows at once, so |y_0|², y_0 · y_i and |y_i|² accumulate
+  // row by row
+  for (int c = lane; c < K; c += 32) {
+    const int j0 = soff[c], j1 = soff[c + 1];
+    const int k0 = j1 > j0 ? sdof[j0] : nv;
+    float Ann = 0.0f, Ant[5] = {0.0f}, Att[5] = {0.0f};
+    for (int k = k0; k < nv; ++k) {
+      float y[6] = {0.0f};
+      for (int j = j0; j < j1 && sdof[j] <= k; ++j) {
+        const float li = Li[k * ld + sdof[j]];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) y[r] += li * Jb[r * C + j];
+      }
+      Ann += y[0] * y[0];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        Ant[i] += y[0] * y[i + 1];
+        Att[i] += y[i + 1] * y[i + 1];
       }
     }
-    const float mus = mu3[c], mut = mu3[K + c], mur = mu3[2 * K + c];
-    const float mu[5] = {mus, mus, mut, mur, mur};
-    const float d = dc[c];
+    float bq[6], m[5];
+    dots(c, QV, bq);
+    mu5(c, m);
+    const float d = in(a.dc, c);
     const float Rf = fmaxf((1.0f - d) / fmaxf(d, 1e-4f), 1e-6f);
-    const float kdp = kc[c] * d * dist[c], b = bc[c];
+    const float kdp = in(a.kc, c) * d * in(a.dist, c), b = in(a.bc, c);
+#pragma unroll
     for (int i = 0; i < 5; ++i) {
-      const float cr = 2.0f * mu[i] * Ant[i + 1];
-      const float qd = mu[i] * mu[i] * Att[i + 1];
-      const float mt = mu[i] * bq[i + 1];
+      const float cr = 2.0f * m[i] * Ant[i];
+      const float qd = m[i] * m[i] * Att[i];
+      const float mt = m[i] * bq[i + 1];
       De[(2 * i) * K + c] = 1.0f / (Rf * mx(Ann + cr + qd, 1e-10f));
       De[(2 * i + 1) * K + c] = 1.0f / (Rf * mx(Ann - cr + qd, 1e-10f));
       ar[(2 * i) * K + c] = -b * (bq[0] + mt) - kdp;
       ar[(2 * i + 1) * K + c] = -b * (bq[0] - mt) - kdp;
     }
   }
-  // limit rows: static sparse Jacobians
-  for (int l = 0; l < nlim; ++l) {
-    float diag = 0.0f, jv = 0.0f;
-    for (int i = lim_ptr[l]; i < lim_ptr[l + 1]; ++i) {
-      const int u = lim_dof[i];
-      const float cu = __ldg(lim_coef + i);
-      jv += cu * qv[u];
-      for (int k = lim_ptr[l]; k < lim_ptr[l + 1]; ++k)
-        diag += cu * __ldg(lim_coef + k) * Minv[u * nv + lim_dof[k]];
+  // limit rows: static sparse Jacobians, diag by the same product
+  for (int l = lane; l < nlim; l += 32) {
+    const int i0 = __ldg(lim_ptr + l), i1 = __ldg(lim_ptr + l + 1);
+    float jv = 0.0f, diag = 0.0f;
+    for (int i = i0; i < i1; ++i)
+      jv += __ldg(lim_coef + i) * QV[__ldg(lim_dof + i)];
+    for (int k = 0; k < nv; ++k) {
+      float y = 0.0f;
+      for (int i = i0; i < i1; ++i) {
+        const int u = __ldg(lim_dof + i);
+        if (u <= k) y += Li[k * ld + u] * __ldg(lim_coef + i);
+      }
+      diag += y * y;
     }
-    const float d = dl[l];
+    const float d = in(a.dl, l);
     const float Rf = fmaxf((1.0f - d) / fmaxf(d, 1e-4f), 1e-6f);
     Dl[l] = 1.0f / (Rf * mx(diag, 1e-10f));
-    al[l] = -bl[l] * jv - kl[l] * d * lpos[l];
+    al[l] = -in(a.bl, l) * jv - in(a.kl, l) * d * in(a.lpos, l);
   }
+  __syncwarp();
+
+  // line-search lanes: two edges at a time (half), 16 grid points (t)
+  const int t = lane & 15, half = lane >> 4;
+  const int nls = a.nls;
+  const float gt = __ldg(a.grid + min(t, nls - 1));
+  const float gnext = __shfl_sync(FULL_MASK, gt, (lane + 1) & 31);
+  // r + t jp is linear in t: a row is active somewhere on the grid iff it
+  // is at t = 0 or at the last grid point
+  const float tmax = __ldg(a.grid + nls - 1);
+  const unsigned below = (1u << lane) - 1u;
 
   // ---- Newton iterations ----
-  for (int v = 0; v < nv; ++v) x[v] = as[v];
   for (int it = 0; it < a.niter; ++it) {
-    for (int u = 0; u < nv; ++u) {
-      float s = 0.0f;
-      for (int v = 0; v < nv; ++v) s += Mm[u * nv + v] * (x[v] - as[v]);
-      Mx[u] = s;
-      g[u] = s;
-      for (int w = 0; w <= u; ++w) H[u * nv + w] = Mm[u * nv + w];
-    }
-    for (int c = 0; c < K; ++c) {
-      float bx[6];
-      C.dots(c, x, bx, &Jc);
-      const float mus = mu3[c], mut = mu3[K + c], mur = mu3[2 * K + c];
-      const float mu[5] = {mus, mus, mut, mur, mur};
-      float Da[10], y[10];
-      bool active = false;
-      for (int i = 0; i < 5; ++i) {
-        const float mt = mu[i] * bx[i + 1];
-        const float r0 = bx[0] + mt - ar[(2 * i) * K + c];
-        const float r1 = bx[0] - mt - ar[(2 * i + 1) * K + c];
-        re[(2 * i) * K + c] = r0;
-        re[(2 * i + 1) * K + c] = r1;
-        Da[2 * i] = r0 < 0.0f ? De[(2 * i) * K + c] : 0.0f;
-        Da[2 * i + 1] = r1 < 0.0f ? De[(2 * i + 1) * K + c] : 0.0f;
-        y[2 * i] = Da[2 * i] * r0;
-        y[2 * i + 1] = Da[2 * i + 1] * r1;
-        active |= (r0 < 0.0f) || (r1 < 0.0f);
-      }
-      if (!active) continue;
-      // gradient: Jᵀ (Da r) collapsed onto the base rows
-      float Y0 = 0.0f, c0 = 0.0f;
-      for (int k = 0; k < 10; ++k) {
-        Y0 += y[k];
-        c0 += Da[k];
-      }
-      float Z[5], ci[5], cii[5];
-      for (int i = 0; i < 5; ++i) {
-        Z[i] = mu[i] * (y[2 * i] - y[2 * i + 1]);
-        ci[i] = mu[i] * (Da[2 * i] - Da[2 * i + 1]);
-        cii[i] = mu[i] * mu[i] * (Da[2 * i] + Da[2 * i + 1]);
-      }
-      for (int v = 0; v < nv; ++v) {
-        if (C.dm(c, v) == 0.0f) continue;
-        float s = Jc[v] * Y0, P = c0 * Jc[v];
+    // lanes over slots: residuals, active set, per-slot coefficients
+    int nact = 0;
+    for (int base = 0; base < K; base += 32) {
+      const int c = base + lane;
+      bool touched = false;
+      float co[NCO];
+      if (c < K) {
+        float bx[6], m[5], Da[10], y[10];
+        dots(c, X, bx);
+        mu5(c, m);
+#pragma unroll
         for (int i = 0; i < 5; ++i) {
-          const float jt = Jc[(i + 1) * nv + v];
-          s += jt * Z[i];
-          P += ci[i] * jt;
-          PQ[(i + 1) * nv + v] = ci[i] * Jc[v] + cii[i] * jt;
+          const float mt = m[i] * bx[i + 1];
+          const float r0 = bx[0] + mt - ar[(2 * i) * K + c];
+          const float r1 = bx[0] - mt - ar[(2 * i + 1) * K + c];
+          re[(2 * i) * K + c] = r0;
+          re[(2 * i + 1) * K + c] = r1;
+          Da[2 * i] = r0 < 0.0f ? De[(2 * i) * K + c] : 0.0f;
+          Da[2 * i + 1] = r1 < 0.0f ? De[(2 * i + 1) * K + c] : 0.0f;
+          y[2 * i] = Da[2 * i] * r0;
+          y[2 * i + 1] = Da[2 * i + 1] * r1;
+          // a NaN residual counts: its Da r is NaN, as in the twin
+          touched |= !(r0 >= 0.0f) || !(r1 >= 0.0f);
         }
-        g[v] += s;
-        PQ[v] = P;
-      }
-      // H += Jᵀ Da J: lower triangle over the slot's chain dofs
-      for (int u = 0; u < nv; ++u) {
-        if (C.dm(c, u) == 0.0f) continue;
-        const float jn = Jc[u];
-        float jt[5];
-        for (int i = 0; i < 5; ++i) jt[i] = Jc[(i + 1) * nv + u];
-        for (int w = 0; w <= u; ++w) {
-          if (C.dm(c, w) == 0.0f) continue;
-          float h = jn * PQ[w];
-          for (int i = 0; i < 5; ++i) h += jt[i] * PQ[(i + 1) * nv + w];
-          H[u * nv + w] += h;
+        if (touched) {
+          float Y0 = 0.0f, c0 = 0.0f;
+#pragma unroll
+          for (int k = 0; k < 10; ++k) {
+            Y0 += y[k];
+            c0 += Da[k];
+          }
+          co[CO_Y0] = Y0;
+          co[CO_C0] = c0;
+#pragma unroll
+          for (int i = 0; i < 5; ++i) {
+            co[CO_Z + i] = m[i] * (y[2 * i] - y[2 * i + 1]);
+            co[CO_CI + i] = m[i] * (Da[2 * i] - Da[2 * i + 1]);
+            co[CO_CII + i] = m[i] * m[i] * (Da[2 * i] + Da[2 * i + 1]);
+          }
         }
       }
+      const unsigned mask = __ballot_sync(FULL_MASK, touched);
+      if (touched) {
+        const int j = nact + __popc(mask & below);
+        act[j] = c;
+#pragma unroll
+        for (int q = 0; q < NCO; ++q) W[j * NCO + q] = co[q];
+      }
+      nact += __popc(mask);
     }
-    for (int l = 0; l < nlim; ++l) {
+    for (int l = lane; l < nlim; l += 32) {
       float s = 0.0f;
-      for (int i = lim_ptr[l]; i < lim_ptr[l + 1]; ++i)
-        s += __ldg(lim_coef + i) * x[lim_dof[i]];
-      const float r = s - al[l];
-      rl[l] = r;
-      if (!(r < 0.0f)) continue;
-      const float D = Dl[l];
-      for (int i = lim_ptr[l]; i < lim_ptr[l + 1]; ++i) {
-        const int u = lim_dof[i];
-        const float cu = __ldg(lim_coef + i);
-        g[u] += cu * D * r;
-        for (int k = lim_ptr[l]; k < lim_ptr[l + 1]; ++k) {
-          const int v = lim_dof[k];
-          if (v <= u) H[u * nv + v] += cu * __ldg(lim_coef + k) * D;
-        }
+      for (int i = __ldg(lim_ptr + l); i < __ldg(lim_ptr + l + 1); ++i)
+        s += __ldg(lim_coef + i) * X[__ldg(lim_dof + i)];
+      rl[l] = s - al[l];
+    }
+    __syncwarp();
+
+    // lanes over dofs: M (x - a_smooth) and the gradient, in registers.
+    // The slot loops are branch-free (a slot off the dof's chain reads
+    // its first entry and adds nothing), so that the loads of several
+    // slots are in flight at once; the sums stay in slot order.
+    float mxu = 0.0f, gu = 0.0f;
+    if (lane < nv) {
+      const int u = lane;
+      for (int v = 0; v < nv; ++v) mxu += Mm[u * ld + v] * (X[v] - AS[v]);
+      gu = mxu;
+#pragma unroll 4
+      for (int j = 0; j < nact; ++j) {
+        const int c = act[j];
+        const int q = spos[c * nv + u];
+        const float* co = W + j * NCO;
+        const int o = soff[c] + max(q, 0);
+        float s = Jb[o] * co[CO_Y0];
+#pragma unroll
+        for (int i = 0; i < 5; ++i) s += Jb[(i + 1) * C + o] * co[CO_Z + i];
+        if (q >= 0) gu += s;
+      }
+      for (int i = 0; i < nnz; ++i) {
+        const int l = __ldg(a.lim_row + i);
+        const float r = rl[l];
+        if (__ldg(lim_dof + i) == u && r < 0.0f)
+          gu += __ldg(lim_coef + i) * Dl[l] * r;
       }
     }
-    chol(H, nv);
-    for (int v = 0; v < nv; ++v) p[v] = g[v];
-    chol_solve(H, nv, p);
-    for (int v = 0; v < nv; ++v) p[v] = -p[v];
+    // H = M + Jᵀ Da J, lanes over the lower triangle: lane l holds entries
+    // l, l + 32, ... in registers and takes the active slots in order, so
+    // that a slot's coefficients are read once; then the limit rows
+    const int nr = (lay.ntri - lane + 31) / 32;
+    float hacc[TRI_LANE];
+#pragma unroll
+    for (int r = 0; r < TRI_LANE; ++r) {
+      if (r < nr) {
+        const int tt = lane + 32 * r;
+        hacc[r] = Mm[(tri[tt] >> 8) * ld + (tri[tt] & 255)];
+      }
+    }
+    for (int j = 0; j < nact; ++j) {
+      const int c = act[j];
+      const float* co = W + j * NCO;
+      const signed char* pc = spos + c * nv;
+      const int o = soff[c];
+      float ci[5], cii[5];
+      const float c0 = co[CO_C0];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        ci[i] = co[CO_CI + i];
+        cii[i] = co[CO_CII + i];
+      }
+#pragma unroll
+      for (int r = 0; r < TRI_LANE; ++r) {
+        if (r >= nr) break;
+        const int tt = lane + 32 * r;
+        const int qu = pc[tri[tt] >> 8], qw = pc[tri[tt] & 255];
+        if ((qu | qw) < 0) continue;
+        const int ou = o + qu, ow = o + qw;
+        const float jnw = Jb[ow];
+        float jtw[5];
+        float P0 = c0 * jnw;
+#pragma unroll
+        for (int i = 0; i < 5; ++i) {
+          jtw[i] = Jb[(i + 1) * C + ow];
+          P0 += ci[i] * jtw[i];
+        }
+        float hh = Jb[ou] * P0;
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          hh += Jb[(i + 1) * C + ou] * (ci[i] * jnw + cii[i] * jtw[i]);
+        hacc[r] += hh;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TRI_LANE; ++r) {
+      if (r < nr) {
+        const int tt = lane + 32 * r;
+        H[(tri[tt] >> 8) * ld + (tri[tt] & 255)] = hacc[r];
+      }
+    }
+    for (int p = 0; p < a.npair; ++p) {
+      const int tt = __ldg(a.pair_tri + p), l = __ldg(a.pair_row + p);
+      if ((tt & 31) == lane && rl[l] < 0.0f)
+        H[(tri[tt] >> 8) * ld + (tri[tt] & 255)] +=
+            __ldg(a.pair_coef + p) * Dl[l];
+    }
+    __syncwarp();
+    warp_chol(H, nv, ld, INV);
+    const float pu = -warp_chol_solve(H, INV, nv, ld, gu);
+    if (lane < nv) P[lane] = pu;
+    __syncwarp();
 
     // ---- line search on the fixed grid ----
-    float pMp = 0.0f, b0 = 0.0f;
-    for (int u = 0; u < nv; ++u) {
-      float s = 0.0f;
-      for (int v = 0; v < nv; ++v) s += Mm[u * nv + v] * p[v];
-      pMp += p[u] * s;
-      b0 += p[u] * Mx[u];
-    }
-    float dphi[LS_MAX];
+    float mpu = 0.0f;
+    if (lane < nv)
+      for (int v = 0; v < nv; ++v) mpu += Mm[lane * ld + v] * P[v];
+    const float pMp = warp_sum(pu * mpu), b0 = warp_sum(pu * mxu);
+    // lanes over slots: J p per edge, and the slots with an edge that is
+    // active somewhere on the grid
+    int nls_slots = 0;
+    for (int base = 0; base < K; base += 32) {
+      const int c = base + lane;
+      bool any = false;
+      if (c < K) {
+        float bp[6], m[5];
+        dots(c, P, bp);
+        mu5(c, m);
 #pragma unroll
-    for (int t = 0; t < LS_MAX; ++t) dphi[t] = b0 + grid[t] * pMp;
-    for (int c = 0; c < K; ++c) {
-      float bp[6];
-      C.dots(c, p, bp, nullptr);
-      const float mus = mu3[c], mut = mu3[K + c], mur = mu3[2 * K + c];
-      const float mu[5] = {mus, mus, mut, mur, mur};
-      for (int k = 0; k < 10; ++k) {
-        const float mt = mu[k / 2] * bp[k / 2 + 1];
-        const float jp = (k & 1) ? bp[0] - mt : bp[0] + mt;
-        const float r = re[k * K + c];
+        for (int k = 0; k < 10; ++k) {
+          const float mt = m[k / 2] * bp[k / 2 + 1];
+          const float jp = (k & 1) ? bp[0] - mt : bp[0] + mt;
+          W[k * K + c] = jp;
+          const float r = re[k * K + c];
+          any |= !(r >= 0.0f && r + tmax * jp >= 0.0f);
+        }
+      }
+      const unsigned mask = __ballot_sync(FULL_MASK, any);
+      if (any) act[nls_slots + __popc(mask & below)] = c;
+      nls_slots += __popc(mask);
+    }
+    for (int l = lane; l < nlim; l += 32) {
+      float jp = 0.0f;
+      for (int i = __ldg(lim_ptr + l); i < __ldg(lim_ptr + l + 1); ++i)
+        jp += __ldg(lim_coef + i) * P[__ldg(lim_dof + i)];
+      W[10 * K + l] = jp;
+    }
+    __syncwarp();
+    // lanes over (edge, grid point): lane t of each half sums its edges
+    float acc = 0.0f;
+    for (int j = 0; j < nls_slots; ++j) {
+      const int c = act[j];
+      for (int k = half; k < 10; k += 2) {
+        const float r = re[k * K + c], jp = W[k * K + c];
         if (r >= 0.0f && r + tmax * jp >= 0.0f) continue;  // never active
         const float DJ = De[k * K + c] * jp;
-#pragma unroll
-        for (int t = 0; t < LS_MAX; ++t)
-          dphi[t] += DJ * fminf(r + grid[t] * jp, 0.0f);
+        acc += DJ * fminf(r + gt * jp, 0.0f);
       }
     }
-    for (int l = 0; l < nlim; ++l) {
-      float jp = 0.0f;
-      for (int i = lim_ptr[l]; i < lim_ptr[l + 1]; ++i)
-        jp += __ldg(lim_coef + i) * p[lim_dof[i]];
-      const float r = rl[l];
+    for (int l = half; l < nlim; l += 2) {
+      const float r = rl[l], jp = W[10 * K + l];
       if (r >= 0.0f && r + tmax * jp >= 0.0f) continue;
       const float DJ = Dl[l] * jp;
-#pragma unroll
-      for (int t = 0; t < LS_MAX; ++t)
-        dphi[t] += DJ * fminf(r + grid[t] * jp, 0.0f);
+      acc += DJ * fminf(r + gt * jp, 0.0f);
     }
-    // piecewise-linear monotone dphi: interpolate the sign crossing
-    float alpha = 0.0f;
-#pragma unroll
-    for (int t = 0; t < LS_MAX; ++t)
-      if (t == nls - 1 && dphi[t] < 0.0f) alpha = grid[t];
-#pragma unroll
-    for (int t = 0; t + 1 < LS_MAX; ++t) {
-      if (t + 1 >= nls) break;
-      const float lo = dphi[t], hi = dphi[t + 1];
-      if (lo < 0.0f && hi >= 0.0f) {
-        const float frac = clipf(lo / fminf(lo - hi, -1e-12f), 0.0f, 1.0f);
-        alpha = grid[t] + frac * (grid[t + 1] - grid[t]);
-      }
-    }
-    for (int v = 0; v < nv; ++v) x[v] += alpha * p[v];
+    const float dphi =
+        (b0 + gt * pMp) + (acc + __shfl_xor_sync(FULL_MASK, acc, 16));
+    // piecewise-linear monotone dphi: interpolate the last sign crossing,
+    // else the grid's end if dphi is still negative there, else 0
+    const float hi = __shfl_sync(FULL_MASK, dphi, (lane + 1) & 31);
+    const bool crossing = lane + 1 < nls && dphi < 0.0f && hi >= 0.0f;
+    const unsigned cm = __ballot_sync(FULL_MASK, crossing);
+    const float frac = clipf(dphi / fminf(dphi - hi, -1e-12f), 0.0f, 1.0f);
+    const float at = gt + frac * (gnext - gt);
+    const float last = __shfl_sync(FULL_MASK, dphi, nls - 1);
+    const float across = __shfl_sync(FULL_MASK, at, cm ? 31 - __clz(cm) : 0);
+    const float alpha = cm ? across : (last < 0.0f ? tmax : 0.0f);
+    if (lane < nv) X[lane] += alpha * P[lane];
+    __syncwarp();
   }
 
   // ---- final forces, per-slot normal force, qfrc_constraint = Jᵀ f ----
-  for (int v = 0; v < nv; ++v) qfc[v] = 0.0f;
-  for (int c = 0; c < K; ++c) {
-    float bx[6];
-    C.dots(c, x, bx, &Jc);
-    const float mus = mu3[c], mut = mu3[K + c], mur = mu3[2 * K + c];
-    const float mu[5] = {mus, mus, mut, mur, mur};
-    float f[10], fs = 0.0f;
-    for (int k = 0; k < 10; ++k) {
-      const float mt = mu[k / 2] * bx[k / 2 + 1];
-      const float r = ((k & 1) ? bx[0] - mt : bx[0] + mt) - ar[k * K + c];
-      f[k] = r < 0.0f ? fmaxf(-De[k * K + c] * r, 0.0f) : 0.0f;
-      fs += f[k];
+  int nload = 0;
+  for (int base = 0; base < K; base += 32) {
+    const int c = base + lane;
+    bool loaded = false;
+    float fs = 0.0f, Z[5];
+    if (c < K) {
+      float bx[6], m[5], f[10];
+      dots(c, X, bx);
+      mu5(c, m);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) {
+        const float mt = m[k / 2] * bx[k / 2 + 1];
+        const float r = ((k & 1) ? bx[0] - mt : bx[0] + mt) - ar[k * K + c];
+        f[k] = r < 0.0f ? fmaxf(-De[k * K + c] * r, 0.0f) : 0.0f;
+        fs += f[k];
+      }
+      a.fslot[(size_t)c * B + e] = fs;
+      loaded = !(fs == 0.0f);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) Z[i] = m[i] * (f[2 * i] - f[2 * i + 1]);
     }
-    fslot[c] = fs;
-    if (fs == 0.0f) continue;
-    float Z[5];
-    for (int i = 0; i < 5; ++i) Z[i] = mu[i] * (f[2 * i] - f[2 * i + 1]);
-    for (int v = 0; v < nv; ++v) {
-      if (C.dm(c, v) == 0.0f) continue;
-      float s = Jc[v] * fs;
-      for (int i = 0; i < 5; ++i) s += Jc[(i + 1) * nv + v] * Z[i];
-      qfc[v] += s;
+    const unsigned mask = __ballot_sync(FULL_MASK, loaded);
+    if (loaded) {
+      const int j = nload + __popc(mask & below);
+      act[j] = c;
+      W[6 * j] = fs;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) W[6 * j + 1 + i] = Z[i];
     }
+    nload += __popc(mask);
   }
-  for (int l = 0; l < nlim; ++l) {
+  for (int l = lane; l < nlim; l += 32) {
     float s = 0.0f;
-    for (int i = lim_ptr[l]; i < lim_ptr[l + 1]; ++i)
-      s += __ldg(lim_coef + i) * x[lim_dof[i]];
+    for (int i = __ldg(lim_ptr + l); i < __ldg(lim_ptr + l + 1); ++i)
+      s += __ldg(lim_coef + i) * X[__ldg(lim_dof + i)];
     const float r = s - al[l];
-    const float fl = r < 0.0f ? fmaxf(-Dl[l] * r, 0.0f) : 0.0f;
-    for (int i = lim_ptr[l]; i < lim_ptr[l + 1]; ++i)
-      qfc[lim_dof[i]] += __ldg(lim_coef + i) * fl;
+    rl[l] = r < 0.0f ? fmaxf(-Dl[l] * r, 0.0f) : 0.0f;
+  }
+  __syncwarp();
+  float qu = 0.0f;
+  if (lane < nv) {
+    for (int j = 0; j < nload; ++j) {
+      const int c = act[j];
+      const int q = spos[c * nv + lane];
+      if (q < 0) continue;
+      const int o = soff[c] + q;
+      float s = Jb[o] * W[6 * j];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) s += Jb[(i + 1) * C + o] * W[6 * j + 1 + i];
+      qu += s;
+    }
+    for (int l = 0; l < nlim; ++l)
+      for (int i = __ldg(lim_ptr + l); i < __ldg(lim_ptr + l + 1); ++i)
+        if (__ldg(lim_dof + i) == lane) qu += __ldg(lim_coef + i) * rl[l];
+    a.qfc[(size_t)lane * B + e] = qu;
   }
 
   // ---- implicit-damping Euler: (M + h diag(damping)) dv = h qfrc ----
-  for (int u = 0; u < nv; ++u)
-    for (int w = 0; w <= u; ++w)
-      H[u * nv + w] = Mm[u * nv + w] + (u == w ? __ldg(a.hd + u) : 0.0f);
-  chol(H, nv);
-  for (int v = 0; v < nv; ++v) tmp[v] = qf[v] + qfc[v];
-  chol_solve(H, nv, tmp);
-  const float h = __ldg(a.dt);
-  for (int v = 0; v < nv; ++v) {
-    qacc[v] = x[v];
-    qvn[v] = qv[v] + h * tmp[v];
+  for (int tt = lane; tt < lay.ntri; tt += 32) {
+    const int u = tri[tt] >> 8, w = tri[tt] & 255;
+    H[u * ld + w] = Mm[u * ld + w] + (u == w ? __ldg(a.hd + u) : 0.0f);
   }
+  __syncwarp();
+  warp_chol(H, nv, ld, INV);
+  const float dv =
+      warp_chol_solve(H, INV, nv, ld, lane < nv ? QF[lane] + qu : 0.0f);
+  if (lane < nv) {
+    const float h = __ldg(a.dt);
+    a.qacc[(size_t)lane * B + e] = X[lane];
+    a.qvn[(size_t)lane * B + e] = QV[lane] + h * dv;
+  }
+}
+
+int check_shape(int nv, int K, int nlim, int C, int nls, int envs,
+                int smem) {
+  if (nls < 2 || nls > LS_MAX || nv < 1 || nv > NV_MAX || envs < 1 ||
+      envs > ENVS_MAX || K < 0 || nlim < 0 || C < 0)
+    return (int)cudaErrorInvalidValue;
+  const Layout lay = make_layout(nv, K, nlim, C);
+  if (smem != lay.table_bytes + 4 * envs * lay.env)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
 
+// smem: dynamic shared memory of one block, fused_solver.
+// solver_smem_bytes(nv, K, nlim, C, envs); checked against make_layout.
 extern "C" int hm_solve(const float* M, const float* qf, const float* qv,
                         const float* cdof, const float* rel, const float* nrm,
-                        const float* dist, const float* mu3,
-                        const float* dmask, const float* kc, const float* bc,
-                        const float* dc, const float* lpos, const float* kl,
-                        const float* bl, const float* dl, const float* hd,
-                        const float* dt, const int* lim_ptr,
-                        const int* lim_dof, const float* lim_coef,
-                        const float* grid, float* qacc, float* qvn,
-                        float* fslot, float* qfc, float* scratch, int B,
-                        int nv, int K, int nlim, int niter, int nls,
+                        const float* dist, const float* mu3, const float* kc,
+                        const float* bc, const float* dc, const float* lpos,
+                        const float* kl, const float* bl, const float* dl,
+                        const float* hd, const float* dt, const int* slot_ptr,
+                        const int* slot_dof, const float* slot_sgn,
+                        const int* lim_ptr, const int* lim_dof,
+                        const int* lim_row, const float* lim_coef,
+                        const int* pair_tri, const int* pair_row,
+                        const float* pair_coef, const float* grid,
+                        float* qacc, float* qvn, float* fslot, float* qfc,
+                        int B, int nv, int K, int nlim, int C, int npair,
+                        int niter, int nls, int envs, int smem,
                         void* stream) {
-  if (nls < 2 || nls > LS_MAX) return (int)cudaErrorInvalidValue;
-  SolveArgs a{M,    qf,   qv,   cdof,  rel,     nrm,      dist,    mu3,
-              dmask, kc,  bc,   dc,    lpos,    kl,       bl,      dl,
-              hd,   dt,   lim_ptr, lim_dof, lim_coef, grid,  qacc,  qvn,
-              fslot, qfc, scratch, B,   nv,      K,        nlim,    niter,
-              nls};
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  solve_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a);
+  const int err = check_shape(nv, K, nlim, C, nls, envs, smem);
+  if (err != 0) return err;
+  if (B <= 0) return 0;
+  SolveArgs a{M,        qf,       qv,        cdof,      rel,      nrm,
+              dist,     mu3,      kc,        bc,        dc,       lpos,
+              kl,       bl,       dl,        hd,        dt,       slot_ptr,
+              slot_dof, slot_sgn, lim_ptr,   lim_dof,   lim_row,  lim_coef,
+              pair_tri, pair_row, pair_coef, grid,      qacc,     qvn,
+              fslot,    qfc,      B,         nv,        K,        nlim,
+              C,        npair,    niter,     nls,       envs};
+  const int blocks = (B + envs - 1) / envs;
+  solve_kernel<<<blocks, 32 * envs, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Occupancy of the kernel at this block shape: out[0] blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers per
+// thread, out[2] local (spill) bytes per thread.
+extern "C" int hm_solve_occupancy(int nv, int K, int nlim, int C, int envs,
+                                  int smem, int* out) {
+  int err = check_shape(nv, K, nlim, C, LS_MAX, envs, smem);
+  if (err != 0) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], solve_kernel, 32 * envs, smem);
+  if (err != 0) return err;
+  cudaFuncAttributes fa;
+  err = (int)cudaFuncGetAttributes(&fa, solve_kernel);
+  out[1] = fa.numRegs;
+  out[2] = (int)fa.localSizeBytes;
+  return err;
 }

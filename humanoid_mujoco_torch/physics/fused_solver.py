@@ -24,6 +24,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops import linalg
 from .solver import Rows, finish_efc, ls_grid, newton_solve, rows_from_raw
@@ -54,20 +55,35 @@ def solve_step_raw_reference(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
 
 @functools.lru_cache(maxsize=None)
 def _lim_csr(lim_tab, device):
-    """Static limit-row Jacobian nonzeros as CSR: (ptr, dof, coef)."""
+    """Static limit-row Jacobian nonzeros as CSR: (ptr, dof, row, coef),
+    with each entry's row; then kernel B2's Hessian pairs of one row's
+    entries with dof_k <= dof_i: (lower-triangle index of (dof_i,
+    dof_k), row, c_i c_k in float32)."""
     tab = np.asarray(lim_tab, dtype=np.float64).reshape(len(lim_tab), -1)
-    ptr, dof, coef = [0], [], []
-    for row in tab:
+    ptr, dof, row_of, coef = [0], [], [], []
+    ptri, prow, pcoef = [], [], []
+    for r, row in enumerate(tab):
         nz = np.nonzero(row)[0]
         dof.extend(int(v) for v in nz)
+        row_of.extend(r for _ in nz)
         coef.extend(float(row[v]) for v in nz)
         ptr.append(len(dof))
-    # keep one element so every pointer is valid when there are no rows
-    dof = dof or [0]
-    coef = coef or [0.0]
-    return (torch.tensor(ptr, dtype=torch.int32, device=device),
-            torch.tensor(dof, dtype=torch.int32, device=device),
-            torch.tensor(coef, dtype=torch.float32, device=device))
+        for u in nz:
+            for v in nz:
+                if v <= u:
+                    ptri.append(int(u * (u + 1) // 2 + v))
+                    prow.append(r)
+                    pcoef.append(float(np.float32(row[u])
+                                       * np.float32(row[v])))
+
+    def ints(x):
+        # one element at least, so that every pointer is valid
+        return torch.tensor(x or [0], dtype=torch.int32, device=device)
+
+    def floats(x):
+        return torch.tensor(x or [0.0], dtype=torch.float32, device=device)
+    return (ints(ptr), ints(dof), ints(row_of), floats(coef), ints(ptri),
+            ints(prow), floats(pcoef), len(ptri))
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,9 +91,135 @@ def _grid(ls_iter, device):
     return ls_grid(ls_iter, torch.float32, device)
 
 
-def scratch_floats(nv: int, K: int, nlim: int) -> int:
-    """Per-env scratch of the kernel (the Carver layout in solver.cu)."""
-    return 4 * nv * nv + 18 * nv + 36 * K + 3 * nlim
+SMEM_MAX = 232_448    # dynamic shared memory one block may use (H100)
+ENVS_PER_BLOCK = 4    # kernel B2: one warp per env, this many per block
+NV_MAX = 32           # kernel B2: one lane per dof in its warp solves
+_CHAINS = WeakIdKeyDictionary()
+
+
+def chain_layout(dmask: torch.Tensor):
+    """The static chain mask (K, nv) compressed per slot, as kernel B2
+    stores its base rows: (ptr (K+1,), dof (C,), sign (C,)) int32 /
+    float32 numpy arrays, slot c's chain dofs at ptr[c]:ptr[c+1] in
+    ascending order with their ±1 mask values, and the same three as
+    tensors on the mask's device. Cached per mask tensor (the mask is
+    static: `solver.contact_dmask` returns one tensor per model), so the
+    host reads it once."""
+    hit = _CHAINS.get(dmask)
+    if hit is None:
+        tab = dmask.detach().cpu().double().numpy()
+        ptr, dof, sgn = [0], [], []
+        for row in tab:
+            nz = np.nonzero(row)[0]
+            dof.extend(int(v) for v in nz)
+            sgn.extend(float(row[v]) for v in nz)
+            ptr.append(len(dof))
+        arrays = (np.asarray(ptr, np.int32), np.asarray(dof, np.int32),
+                  np.asarray(sgn, np.float32))
+        # one element at least, so that every pointer is valid
+        hit = arrays + tuple(
+            torch.as_tensor(x if len(x) else np.zeros(1, x.dtype),
+                            device=dmask.device) for x in arrays)
+        _CHAINS[dmask] = hit
+    return hit
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def solver_smem_bytes(nv: int, K: int, nlim: int, chain: int,
+                      envs: int = 1) -> int:
+    """Dynamic shared memory of one block of kernel B2 with `envs` warps
+    (csrc/solver.cu make_layout): the block's tables (slot offsets,
+    compressed dofs, (slot, dof) positions, lower-triangle pairs), then
+    per env M and H (row stride nv | 1), the six base rows over the
+    `chain` compressed chain dofs, D, aref and r of the 10 K pyramid
+    edges, friction, a work area, the limit rows' D, aref and r, six
+    nv-vectors and the active-slot list, all float32 / int32."""
+    ld = nv | 1
+    tables = _round_up(_round_up(4 * (K + 1) + chain + K * nv, 2)
+                       + nv * (nv + 1), 16)
+    work = max(17 * K, 10 * K + nlim, nv * ld, 6 * nv)
+    env = (2 * nv * ld + 6 * chain + 33 * K + work + 3 * nlim + 6 * nv
+           + K)
+    return tables + 4 * envs * _round_up(env, 4)
+
+
+def solver_block_shape(nv: int, K: int, nlim: int, chain: int):
+    """(envs per block, shared bytes per block) of kernel B2, or a
+    ValueError when one env's working set does not fit a block."""
+    if nv > NV_MAX:
+        raise ValueError(f"kernel B2 takes at most {NV_MAX} dofs, got {nv}")
+    one = solver_smem_bytes(nv, K, nlim, chain)
+    if one > SMEM_MAX:
+        raise ValueError(f"kernel B2 needs {one} bytes of shared memory for "
+                         f"one env (nv {nv}, {K} slots, {nlim} limit rows, "
+                         f"{chain} chain dofs); a block has {SMEM_MAX}")
+    envs = ENVS_PER_BLOCK
+    while solver_smem_bytes(nv, K, nlim, chain, envs) > SMEM_MAX:
+        envs -= 1
+    return envs, solver_smem_bytes(nv, K, nlim, chain, envs)
+
+
+def _solver_launch_args(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
+                        kc, bc, dc, lpos, kl, bl, dl, hdamp, dt, lim_tab,
+                        niter, ls_iter):
+    """Kernel B2's C arguments for checked inputs: (pointer tensors,
+    ints, outputs (qacc, qvn, fslot, qfc) batch-last). Raises ValueError
+    before any launch when the model does not fit the kernel."""
+    B, nv = qf.shape
+    K, nlim = dist.shape[1], lpos.shape[1]
+    dev = M.device
+    _, dof, _, *chain = chain_layout(dmask)
+    envs, smem = solver_block_shape(nv, K, nlim, len(dof))
+
+    def lanes(x):
+        """(B, a, b) -> (b, a, B) for the contact arrays, (B, ...) ->
+        (..., B) otherwise; contiguous (free for the smooth kernel's
+        batch-last views)."""
+        return x.permute(tuple(range(x.ndim - 1, 0, -1)) + (0,)).contiguous()
+
+    def rows_last(x):
+        return x.permute(tuple(range(1, x.ndim)) + (0,)).contiguous()
+
+    lim = _lim_csr(tuple(lim_tab), dev)
+    f32 = torch.float32
+    if nlim:
+        limt = [x.t().contiguous() for x in (lpos, kl, bl, dl)]
+    else:
+        limt = [torch.zeros((1, B), dtype=f32, device=dev)] * 4
+    hd = torch.as_tensor(hdamp, dtype=f32, device=dev).reshape(nv)
+    dtt = torch.as_tensor(dt, dtype=f32, device=dev).reshape(1)
+    outs = tuple(torch.empty((n, B), dtype=f32, device=dev)
+                 for n in (nv, nv, K, nv))
+    ins = (rows_last(M), qf.t().contiguous(), qv.t().contiguous(),
+           rows_last(cdof), lanes(rel), lanes(nrm), dist.t().contiguous(),
+           lanes(mu3), *(x.t().contiguous() for x in (kc, bc, dc)), *limt,
+           hd.contiguous(), dtt,
+           *chain, *lim[:7], _grid(ls_iter, dev))
+    ints = (B, nv, K, nlim, len(dof), lim[7], niter, ls_iter, envs, smem)
+    return ins, ints, outs
+
+
+def solver_occupancy(nv: int, K: int, nlim: int, chain: int):
+    """Kernel B2's occupancy on the current card at the block shape the
+    wrapper launches: envs per block, shared bytes per env and per
+    block, blocks per SM, registers and local (spill) bytes per thread."""
+    import ctypes
+    from .. import kernels
+    envs, smem = solver_block_shape(nv, K, nlim, chain)
+    fn = kernels.load("solver").hm_solve_occupancy
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    err = fn(nv, K, nlim, chain, envs, smem, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"hm_solve_occupancy failed: cudaError {err}")
+    return {"envs_per_block": envs,
+            "smem_per_env": solver_smem_bytes(nv, K, nlim, chain, 1)
+            - solver_smem_bytes(nv, K, nlim, chain, 0),
+            "smem_per_block": smem, "blocks_per_sm": out[0],
+            "registers": out[1], "local_bytes": out[2]}
 
 
 def solve_step_raw(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
@@ -119,45 +261,12 @@ def solve_step_raw(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
         raise ValueError(f"ls_iter must be in [2, {LS_MAX}]")
     if len(lim_tab) != nlim or any(len(row) != nv for row in lim_tab):
         raise ValueError("lim_tab must be (nlim, nv) for this limit data")
-
-    def lanes(x):
-        """(B, a, b) -> (b, a, B) for the contact arrays, (B, ...) ->
-        (..., B) otherwise; contiguous (free for the smooth kernel's
-        batch-last views)."""
-        return x.permute(tuple(range(x.ndim - 1, 0, -1)) + (0,)).contiguous()
-
-    def rows_last(x):
-        return x.permute(tuple(range(1, x.ndim)) + (0,)).contiguous()
-
-    f32 = torch.float32
-    Mt, cdoft = rows_last(M), rows_last(cdof)
-    qft, qvt = qf.t().contiguous(), qv.t().contiguous()
-    relt, nrmt, mut = lanes(rel), lanes(nrm), lanes(mu3)
-    distt, kct, bct, dct = (x.t().contiguous() for x in (dist, kc, bc, dc))
-    if nlim:
-        limt = [x.t().contiguous() for x in (lpos, kl, bl, dl)]
-    else:
-        limt = [torch.zeros((1, B), dtype=f32, device=dev)] * 4
-    hd = torch.as_tensor(hdamp, dtype=f32, device=dev).reshape(nv)
-    hd = hd.contiguous()
-    dtt = torch.as_tensor(dt, dtype=f32, device=dev).reshape(1)
-    dm = dmask.contiguous()
-    lim_ptr, lim_dof, lim_coef = _lim_csr(tuple(lim_tab), dev)
-    grid = _grid(ls_iter, dev)
-
-    qacc = torch.empty((nv, B), dtype=f32, device=dev)
-    qvn = torch.empty((nv, B), dtype=f32, device=dev)
-    fslot = torch.empty((K, B), dtype=f32, device=dev)
-    qfc = torch.empty((nv, B), dtype=f32, device=dev)
-    scratch = torch.empty((scratch_floats(nv, K, nlim), B), dtype=f32,
-                          device=dev)
-    ins = (Mt, qft, qvt, cdoft, relt, nrmt, distt, mut, dm, kct, bct, dct,
-           *limt, hd, dtt, lim_ptr, lim_dof, lim_coef, grid)
-    outs = (qacc, qvn, fslot, qfc, scratch)
-    kernels.launch("solver", *(t.data_ptr() for t in ins + outs),
-                   B, nv, K, nlim, niter, ls_iter)
+    ins, ints, outs = _solver_launch_args(
+        M, qf, qv, cdof, rel, nrm, dist, mu3, dmask, kc, bc, dc, lpos, kl,
+        bl, dl, hdamp, dt, lim_tab, niter, ls_iter)
+    kernels.launch("solver", *(t.data_ptr() for t in ins + outs), *ints)
     LAUNCHES += 1
-    return qacc.t(), qvn.t(), fslot.t(), qfc.t()
+    return tuple(x.t() for x in outs)
 
 
 def solve_constraints_euler_reference(M, qf, qv, J, pos, k, b, d, hdamp,

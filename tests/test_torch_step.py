@@ -20,7 +20,9 @@ process-wide cache, so the tests share the compiled eager ops:
   gaps, which the test asserts first; float64 at 1e-9.
 
 Tolerances are max-abs error over max-abs value. Also: the divergence
-freeze, and the paths of later slices raising. tests/test_torch_port.py
+freeze, the paths of later slices raising, and the shared-memory sizing
+of kernel B2 (one env's working set, and the refusal of a model too
+large for a block). tests/test_torch_port.py
 runs these checks as the port's one collected test (ROADMAP.md, "Keep
 the count of collected test items small").
 """
@@ -220,6 +222,42 @@ def check_later_slice_paths_raise():
         step(m, s.replace(qpos=s.qpos.double()), torch.zeros(1, m.nu))
 
 
+def check_solver_shared_memory_sizing():
+    """Kernel B2 keeps one env's working set in a block's shared memory:
+    the compressed chain layout of the humanoid's contact mask, its byte
+    count against a hand count, and the refusal of a model too large."""
+    m = th.build_humanoid(device="cpu")
+    dmask = contact_dmask(m)
+    ptr, dof, sgn = fused_solver.chain_layout(dmask)[:3]
+    assert fused_solver.chain_layout(dmask) is fused_solver.chain_layout(
+        dmask)
+    per_slot = (dmask != 0).sum(dim=1).numpy()
+    np.testing.assert_array_equal(np.diff(ptr), per_slot)
+    assert per_slot.max() == 9 and per_slot.sum() == 376 == len(dof)
+    tab = dmask.numpy()
+    np.testing.assert_array_equal(dof, np.nonzero(tab)[1])
+    np.testing.assert_array_equal(sgn, tab[tab != 0])
+    nv, K, nlim = m.nv, m.ncon, len(limit_rows_static(m))
+    assert (nv, K, nlim) == (18, 67, 24)
+    # tables: slot offsets 4 x 68, dofs 376, positions 67 x 18, pairs
+    # 2 x 171 -> 2196 bytes, to 16; one env: M and H at row stride 19,
+    # 6 x 376 base rows, D / aref / r of 670 edges, friction 3 x 67, the
+    # work area max(17 x 67, 670 + 24, 18 x 19), 3 x 24 limit values,
+    # six 18-vectors, 67 active-slot entries -> 6537 floats, to 4
+    tables = 2208
+    env = 4 * 6540
+    assert 2 * 18 * 19 + 6 * 376 + 30 * 67 + 3 * 67 + 17 * 67 + 3 * 24 \
+        + 6 * 18 + 67 == 6537
+    assert fused_solver.solver_smem_bytes(nv, K, nlim, 376) == tables + env
+    envs, smem = fused_solver.solver_block_shape(nv, K, nlim, 376)
+    assert (envs, smem) == (4, tables + 4 * env)
+    assert smem <= fused_solver.SMEM_MAX == 227 * 1024
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused_solver.solver_block_shape(nv, 2000, nlim, 2000 * nv)
+    with pytest.raises(ValueError, match="at most 32 dofs"):
+        fused_solver.solver_block_shape(40, K, nlim, 376)
+
+
 def run_checks():
     for name, tol in (("float64", 1e-9), ("float32", 5e-4)):
         check_solver_twin(name, tol)
@@ -230,3 +268,4 @@ def run_checks():
     check_nan_qpos_freezes_the_state()
     check_exploding_qvel_is_flagged()
     check_later_slice_paths_raise()
+    check_solver_shared_memory_sizing()

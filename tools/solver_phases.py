@@ -1,0 +1,165 @@
+"""Where kernel B2's time goes, phase by phase, on the GPU.
+
+Builds an instrumented copy of humanoid_mujoco_torch/csrc/solver.cu into
+build/solver_phases/ (the shipped kernel is not touched): before each
+phase marker below, the warp reads clock64() and lane 0 adds the cycles
+since the previous marker to a per-env counter. It runs the copy once on
+the stand rollout's states (chip_smoke.headline, 50 steps in) and once
+on chip_smoke's random stand states, at B = 1024, and prints per phase
+the mean cycles per env and its share. The Newton phases are summed over
+the iterations; the residual pass also carries the previous iteration's
+step update. The markers add a __syncwarp and a clock read each, so the
+instrumented kernel runs a little slower than the shipped one (its time
+is printed beside).
+
+    python tools/solver_phases.py [--batch 1024]
+
+Needs a CUDA device and nvcc; prints the card's name and power limit
+first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+# (text in solver.cu that starts a phase, name of the phase it ends)
+MARKS = (
+    ("  // ---- lanes over slots: tangent frame", "load inputs"),
+    ("  // ---- Cholesky of M (in H)", "frames and base rows"),
+    ("  // ---- lanes over slots: Gram terms", "chol(M), a_smooth, L^-1"),
+    ("  // line-search lanes:", "Gram terms, D, aref"),
+    ("    // lanes over dofs: M (x - a_smooth)", "residuals, active set"),
+    ("    // H = M + J", "gradient"),
+    ("    __syncwarp();\n    warp_chol(H, nv, ld, INV);\n    const float pu",
+     "Hessian"),
+    ("    // ---- line search on the fixed grid ----", "chol(H), solve"),
+    ("    // lanes over (edge, grid point)", "line search: J p"),
+    ("    // piecewise-linear monotone dphi", "line search: grid"),
+    ("  // ---- final forces", "line search: step (last)"),
+    ("  // ---- implicit-damping Euler", "final forces"),
+    ("  if (lane < nv) {\n    const float h = __ldg(a.dt);", "Euler"),
+)
+PROBE = r'''
+__device__ unsigned long long g_phase[4096 * 16];
+#define PHASE(k) do { __syncwarp(); const long long t_ = clock64(); \
+  if (lane == 0 && e < 4096) g_phase[e * 16 + (k)] += t_ - t_last; \
+  t_last = t_; } while (0)
+'''
+READ = r'''
+extern "C" int hm_phase_read(unsigned long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase, 8 * 16 * (size_t)n);
+}
+extern "C" int hm_phase_zero() {
+  static unsigned long long zero[4096 * 16];
+  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
+}
+'''
+
+
+def instrumented_source() -> str:
+    src = open(os.path.join(ROOT, "humanoid_mujoco_torch", "csrc",
+                            "solver.cu")).read()
+    for k, (mark, _) in enumerate(MARKS):
+        if src.count(mark) != 1:
+            raise RuntimeError(f"phase marker not found once: {mark!r}")
+        src = src.replace(mark, f"  PHASE({k});\n" + mark)
+    start = "  if (e >= B) return;"
+    if src.count(start) != 1:
+        raise RuntimeError("kernel entry marker not found")
+    src = src.replace(start, start + "\n  long long t_last = clock64();")
+    src = src.replace('#include "common.cuh"', '#include "common.cuh"\n'
+                      + PROBE)
+    return src + READ
+
+
+def build():
+    from humanoid_mujoco_torch import kernels
+    out = os.path.join(ROOT, "build", "solver_phases")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, "solver_phases.cu")
+    with open(src, "w") as f:
+        f.write(instrumented_source())
+    lib = os.path.join(out, "libsolver_phases.so")
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS,
+                    "-I", os.path.join(ROOT, "humanoid_mujoco_torch", "csrc"),
+                    "-o", lib, src], check=True, capture_output=True)
+    so = ctypes.CDLL(lib)
+    name, argtypes = kernels.SIGNATURES["solver"]
+    fn = getattr(so, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return so, fn
+
+
+def solve_inputs(m, qpos, qvel, ctrl):
+    from humanoid_mujoco_torch.physics import fused_smooth
+    from humanoid_mujoco_torch.physics.solver import contact_dmask
+    raw = fused_smooth.smooth_raw(m, qpos, qvel, ctrl)
+    return (raw[0], raw[1], qvel, *raw[2:7], contact_dmask(m), *raw[7:14],
+            m.dt * m.dof_damping, m.dt)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=1024)
+    B = ap.parse_args().batch
+    if not torch.cuda.is_available():
+        sys.exit("solver_phases: needs a CUDA device")
+    if B > 4096:
+        sys.exit("solver_phases: at most 4096 envs")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    import chip_smoke
+    from humanoid_mujoco_torch.physics import fused_solver, humanoid
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    so, fn = build()
+    m = humanoid.build_humanoid(device="cuda")
+    lim_tab = limit_rows_static(m)
+    _, rollout = chip_smoke.headline(m, B, 50)
+    end = rollout().final_state
+    cases = {"rollout": solve_inputs(m, end.qpos, end.qvel,
+                                     torch.zeros(B, m.nu, device="cuda")),
+             "smoke": solve_inputs(m, *chip_smoke.states(m, B))}
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, args in cases.items():
+        ins, ints, outs = fused_solver._solver_launch_args(
+            *args, lim_tab, 8, 16)
+        ptrs = [t.data_ptr() for t in ins + outs]
+        if fn(*ptrs, *ints, stream) or so.hm_phase_zero():    # warm-up
+            raise RuntimeError("instrumented launch failed")
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if fn(*ptrs, *ints, stream):
+            raise RuntimeError("instrumented launch failed")
+        b.record()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (16 * B))()
+        if so.hm_phase_read(buf, B):
+            raise RuntimeError("reading the phase counters failed")
+        cyc = np.frombuffer(buf, dtype=np.uint64).reshape(B, 16)
+        mean = cyc[:, :len(MARKS)].astype(np.float64).mean(axis=0)
+        total = float(mean.sum())
+        print(json.dumps({
+            "states": label, "batch": B,
+            "instrumented_ms": a.elapsed_time(b),
+            "cycles_per_env": total,
+            "phases": [{"phase": name, "cycles": float(c),
+                        "share": float(c) / total}
+                       for (_, name), c in zip(MARKS, mean)]}, indent=1))
+
+
+if __name__ == "__main__":
+    main()
