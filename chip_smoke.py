@@ -15,14 +15,18 @@ the port's two paths:
   too large for a block's shared memory; the 1024 x 100 stand rollout
   and three 1024-sample predictive-sampling plans;
 - the Swimmer (plain smooth stage + kernel B3): B3 against its twin on
-  Swimmer states (B = 1024 and an odd B = 300) and against B2 on the
-  humanoid's 694 explicit rows, the whole step against the twin
+  Swimmer states (B = 1024, an odd B = 300 and B = 1) and on a
+  Rubik-sized synthetic solve (nv 36, 360 rows, B = 300), and against B2
+  on the humanoid's 694 explicit rows; B3's bitwise repeat, the
+  isolation of a NaN env and its refusal of nv > 64 and of a model too
+  large for a block's shared memory; the whole step against the twin
   composition, three 1024-sample x 60-step plans and a 10 x 10 MPC loop
   toward a target with the task's transition on.
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B2's
-occupancy (shared bytes per env and per block, blocks per SM, registers
+occupancy and B3's on the Swimmer's rows, the humanoid's rows and the
+nv-36 case (shared bytes per env and per block, blocks per SM, registers
 and spills). It prints a `kernels` JSON line (time,
 launch count, plain-twin time and roofline bound per kernel). The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -232,22 +236,21 @@ def solver_vs_twin(m, B, seed):
         fused_solver.solve_step_raw(*args, lim_tab=lim_tab)))
 
 
-def solver_isolation(m, solve_in, lim_tab, env=7):
-    """B2 on the main states (B = 1024): two launches give the same
-    bits; a NaN in one env's qvel makes that env's qacc and qvel_new
-    non-finite, so that `step` flags it as diverged, and leaves every
-    other env's outputs bitwise unchanged."""
-    from humanoid_mujoco_torch.physics import fused_solver
+def isolation(m, solve, args, model_states, env=7):
+    """A solve kernel (`solve(*args)`, B2 or B3) on the main states: two
+    launches give the same bits; a NaN in one env's qvel (args[2]) makes
+    that env's qacc and qvel_new non-finite, so that `step` flags it as
+    diverged, and leaves every other env's outputs bitwise unchanged.
+    `model_states(m, B)` gives the states for the step."""
     from humanoid_mujoco_torch.physics.model import make_state
     from humanoid_mujoco_torch.physics.step import step
-    first = fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
-    again = fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
+    first = solve(*args)
+    again = solve(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, again)), \
-        "B2 differs between two launches on the same inputs"
-    qv = solve_in[2].clone()
+        "the kernel differs between two launches on the same inputs"
+    qv = args[2].clone()
     qv[env, 3] = float("nan")
-    poisoned = fused_solver.solve_step_raw(*solve_in[:2], qv, *solve_in[3:],
-                                           lim_tab=lim_tab)
+    poisoned = solve(*args[:2], qv, *args[3:])
     B = qv.shape[0]
     rest = torch.arange(B, device=qv.device) != env
     assert not bool(torch.isfinite(poisoned[0][env]).all()), "qacc finite"
@@ -256,7 +259,7 @@ def solver_isolation(m, solve_in, lim_tab, env=7):
     assert all(torch.equal(a[rest], b[rest])
                for a, b in zip(first, poisoned)), \
         "a NaN env changed another env's outputs"
-    qpos, qvel, ctrl = states(m, B)
+    qpos, qvel, ctrl = model_states(m, B)
     qvel[env, 3] = float("nan")
     _, info = step(m, make_state(m, qpos=qpos, qvel=qvel), ctrl)
     flagged = info.diverged.nonzero().flatten().tolist()
@@ -319,7 +322,9 @@ def kernel_edges(m, device, solve_in, lim_tab, B=300):
     out = {"batch": B, "smooth_xfrc_rel_err": e1, "solver_rel_err": e2,
            "solver_rel_err_batch_1": e2_one}
     if device != "cpu":
-        out["solver_isolation"] = solver_isolation(m, solve_in, lim_tab)
+        out["solver_isolation"] = isolation(
+            m, lambda *a: fused_solver.solve_step_raw(*a, lim_tab=lim_tab),
+            solve_in, states)
         out["solver_oversize_bytes_refused"] = solver_refuses_oversize(
             m, device)
         expect_error(TypeError, lambda: fused_smooth.smooth_raw(
@@ -440,17 +445,79 @@ def rows_cost(J, f, trace):
     return 4 * (B * (n_in + n_out) + nv + 1), flops
 
 
-def euler_edges(m, device, B=300):
-    """B3 at a batch that is not a multiple of the 128-thread block on
-    Swimmer states; on the card, the inputs its wrapper must refuse.
-    Returns the max relative error."""
+def rubik_rows(B, device, seed=7, nv=36, ne=360):
+    """A synthetic explicit-row solve the size of the registry's largest
+    B3 model (Rubik: nv 36, up to a few hundred rows), from a numpy seed:
+    a random SPD M with eigenvalues in ~[0.02, 1.5], J with 8 nonzero
+    dofs a row (all of them when nv < 8), a quarter of the rows violated
+    (pos in [-5, 20] mm) with solref (0.02, 1) and d in [0.9, 0.95] at
+    dt 0.002. Returns (M, qf, qv, J, pos, k, b, d, hdamp, dt) float32."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, nv, nv)) / np.sqrt(nv)
+    M = 0.3 * A @ A.transpose(0, 2, 1) + 0.02 * np.eye(nv)
+    J = np.zeros((B, ne, nv))
+    nz = min(8, nv)
+    for i in range(ne):
+        dofs = rng.permuted(np.tile(np.arange(nv), (B, 1)), axis=1)[:, :nz]
+        J[np.arange(B)[:, None], i, dofs] = rng.standard_normal((B, nz))
+    pos = rng.uniform(-0.005, 0.02, (B, ne))
+    d = rng.uniform(0.9, 0.95, (B, ne))
+    dt, tc = 0.002, 0.02
+    b = np.full((B, ne), 2.0 / (0.95 * tc))
+    k = d / (0.95 ** 2 * tc ** 2)
+    qf = rng.standard_normal((B, nv))
+    qv = 0.5 * rng.standard_normal((B, nv))
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    return (t(M), t(qf), t(qv), t(J), t(pos), t(k), t(b), t(d),
+            t(np.full(nv, dt * 0.1)), dt)
+
+
+def euler_refusals(device):
+    """Models B3 does not take are refused with ValueError before any
+    launch: nv 65 (above the kernel's 64) and nv 36 with 1400 rows (one
+    env's working set above a block's shared memory). Returns the bytes
+    the latter would need."""
     from humanoid_mujoco_torch.physics import fused_solver
+    n = fused_solver.EULER_LAUNCHES
+    for nv, ne, what in ((65, 4, "dofs"), (36, 1400, "bytes of shared")):
+        args = rubik_rows(1, device, nv=nv, ne=ne)
+        try:
+            fused_solver.solve_constraints_euler(*args)
+        except ValueError as e:
+            assert what in str(e), e
+        else:
+            raise AssertionError(f"nv {nv}, {ne} rows was not refused")
+    assert fused_solver.EULER_LAUNCHES == n
+    return fused_solver.euler_smem_bytes(36, 1400)
+
+
+def euler_edges(m, device, B=300):
+    """B3 at a batch that is not a multiple of its 4-env block and at
+    B = 1 on Swimmer states, and on a Rubik-sized synthetic solve (nv 36,
+    360 rows, `rubik_rows`) at B = 300; on the card, its bitwise repeat,
+    the isolation of a NaN env, the models it must refuse and the inputs
+    its wrapper must refuse. Returns the max relative errors and the
+    checks' results."""
+    from humanoid_mujoco_torch.physics import fused_solver
+
+    def vs_twin(args):
+        ker = fused_solver.solve_constraints_euler(*args)
+        ref = fused_solver.solve_constraints_euler_reference(*args)
+        return max(rel_err(r, o) for r, o in zip(ref, ker))
     args = swimmer_solve_inputs(m, *swimmer_states(m, B, seed=5))
-    ker = fused_solver.solve_constraints_euler(*args)
-    ref = fused_solver.solve_constraints_euler_reference(*args)
-    err = max(rel_err(r, o) for r, o in zip(ref, ker))
-    assert err <= TOL, err
+    err = vs_twin(args)
+    err_one = vs_twin(swimmer_solve_inputs(m, *swimmer_states(m, 1, seed=8)))
+    err_nv36 = vs_twin(rubik_rows(B, device))
+    assert max(err, err_one, err_nv36) <= TOL, (err, err_one, err_nv36)
+    out = {"batch": B, "euler_rel_err": err, "euler_rel_err_batch_1": err_one,
+           "euler_rel_err_nv36_rows360": err_nv36}
     if device != "cpu":
+        out["euler_isolation"] = isolation(
+            m, fused_solver.solve_constraints_euler, args,
+            lambda mm, n: swimmer_states(mm, n, seed=5))
+        out["euler_oversize_bytes_refused"] = euler_refusals(device)
         expect_error(TypeError, lambda: fused_solver.solve_constraints_euler(
             *[a.double() for a in args[:8]], *args[8:]))
         expect_error(ValueError, lambda: fused_solver.solve_constraints_euler(
@@ -459,7 +526,7 @@ def euler_edges(m, device, B=300):
             *args[:4], args[4][:, :7], *args[5:]))
         expect_error(ValueError, lambda: fused_solver.solve_constraints_euler(
             *args[:4], args[4].cpu(), *args[5:]))
-    return {"batch": B, "euler_rel_err": err}
+    return out
 
 
 def swimmer_rollout(m, B, horizon):
@@ -848,13 +915,19 @@ def main():
     from humanoid_mujoco_torch.physics import fused_solver, humanoid
     from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                       limit_rows_static)
+    from humanoid_mujoco_torch.tasks import task_model
     hm = humanoid.build_humanoid(device="cuda")
+    nlim = len(limit_rows_static(hm))
     occupancy = fused_solver.solver_occupancy(
-        hm.nv, hm.ncon, len(limit_rows_static(hm)),
+        hm.nv, hm.ncon, nlim,
         len(fused_solver.chain_layout(contact_dmask(hm))[1]))
+    sw = task_model("Swimmer", device="cuda")
+    euler_occ = {f"nv{nv}_rows{ne}": fused_solver.euler_occupancy(nv, ne)
+                 for nv, ne in ((sw.nv, len(limit_rows_static(sw))),
+                                (hm.nv, nlim + 10 * hm.ncon), (36, 360))}
     log("environment", gpu=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
-        solver_occupancy=occupancy,
+        solver_occupancy=occupancy, euler_occupancy=euler_occ,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)

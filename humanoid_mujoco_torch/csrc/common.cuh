@@ -2,17 +2,18 @@
 // humanoid step (smooth.cu, solver.cu) and of the explicit-row solve
 // (euler.cu).
 //
-// Layout of the inputs and outputs: batch-last. Every per-env array is
-// stored [..., B], so element i of env e lives at p[i * B + e]. `In` /
-// `Out` are such strided views, already offset to one environment.
+// Layout of B1's and B2's inputs and outputs: batch-last. Every per-env
+// array is stored [..., B], so element i of env e lives at p[i * B + e].
+// `In` / `Out` are such strided views, already offset to one
+// environment. B3 (euler.cu) reads batch-first inputs at their strides.
 //
-// Two ways to spread the work. One thread per environment (smooth.cu,
-// euler.cu): the 32 threads of a warp touch 32 neighbouring floats, and
-// `chol` / `chol_solve` run serially in that thread. One warp per
-// environment (solver.cu): the env's working set sits in shared memory
-// and the warp helpers at the end of this file spread a factorization,
-// a triangular solve or a sum over the 32 lanes, always in a fixed
-// order, so that two launches on the same inputs agree to the bit.
+// Two ways to spread the work. One thread per environment (smooth.cu):
+// the 32 threads of a warp touch 32 neighbouring floats. One warp per
+// environment (solver.cu, euler.cu): the env's working set sits in
+// shared memory and the warp helpers at the end of this file spread a
+// factorization, a triangular solve or a sum over the 32 lanes, always
+// in a fixed order, so that two launches on the same inputs agree to
+// the bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -165,41 +166,47 @@ __device__ __forceinline__ void solref_kb(float tc, float dr, float dmax,
 // Cholesky clamp of the TPU kernels (pallas_solver._EPS)
 constexpr float EPS_CHOL = 1e-12f;
 
-// in-place lower Cholesky of the n x n matrix A (row-major; reads and
-// writes the lower triangle only), pivots clamped at EPS_CHOL
-__device__ inline void chol(const Out& A, int n) {
-  for (int j = 0; j < n; ++j) {
-    float s = A[j * n + j];
-    for (int k = 0; k < j; ++k) s -= A[j * n + k] * A[j * n + k];
-    const float d = sqrtf(mx(s, EPS_CHOL));
-    A[j * n + j] = d;
-    for (int i = j + 1; i < n; ++i) {
-      float t = A[i * n + j];
-      for (int k = 0; k < j; ++k) t -= A[i * n + k] * A[j * n + k];
-      A[i * n + j] = t / d;
-    }
-  }
-}
-
-// x <- (L Lᵀ)⁻¹ x
-__device__ inline void chol_solve(const Out& L, int n, const Out& x) {
-  for (int i = 0; i < n; ++i) {
-    float s = x[i];
-    for (int k = 0; k < i; ++k) s -= L[i * n + k] * x[k];
-    x[i] = s / L[i * n + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    float s = x[i];
-    for (int k = i + 1; k < n; ++k) s -= L[k * n + i] * x[k];
-    x[i] = s / L[i * n + i];
-  }
-}
-
 // ---- one warp per environment ----
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// Asynchronous 4-byte copy from global to shared memory (cp.async,
+// sm_80 and later): a thread keeps many in flight without staging them
+// in registers; cp_async_wait() waits for the calling thread's copies
+// (a __syncwarp must follow before other lanes read them).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// term(u0) + ... + term(u1 - 1) in four partial sums, so that the loads
+// of four terms are in flight at once; a fixed order
+template <class F>
+__device__ __forceinline__ float sum4(int u0, int u1, F term) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+  int u = u0;
+  for (; u + 4 <= u1; u += 4) {
+    s0 += term(u);
+    s1 += term(u + 1);
+    s2 += term(u + 2);
+    s3 += term(u + 3);
+  }
+  for (; u < u1; ++u) s0 += term(u);
+  return (s0 + s1) + (s2 + s3);
+}
 
 // Sum of v over the 32 lanes by an xor butterfly: a fixed order, and
 // every lane gets the same bits (a + b == b + a in IEEE arithmetic).
@@ -291,6 +298,134 @@ __device__ inline void warp_tri_inv(const float* L, const float* inv, int n,
       }
       if (m < k) s0 -= L[k * ld + m] * Li[m * ld + i];
       Li[k * ld + i] = (s0 + s1) * inv[k];
+    }
+  }
+  __syncwarp();
+}
+
+// The same three helpers for n up to 32 R (kernel B3 takes them at R = 2
+// for 32 < nv <= 64): a lane owns the matrix rows lane + 32 q, q < R.
+// Row j's value sits in slot j >> 5 of lane j & 31; `pick` reads that
+// slot (j is the same on every lane) and `src` names that lane.
+template <int R>
+__device__ __forceinline__ float pick(const float (&v)[R], int j) {
+  float s = v[0];
+#pragma unroll
+  for (int q = 1; q < R; ++q)
+    if ((j >> 5) == q) s = v[q];
+  return s;
+}
+template <int R>
+__device__ __forceinline__ int src(int j) {
+  return R == 1 ? j : (j & 31);
+}
+
+// warp_chol for n <= 32 R
+template <int R>
+__device__ inline void warp_chol_rows(float* A, int n, int ld, float* inv) {
+  const int lane = lane_id();
+  const float* ai[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q)  // rows >= n discard theirs
+    ai[q] = A + min(lane + 32 * q, n - 1) * ld;
+  for (int j = 0; j < n; j += 2) {
+    const int j1 = j + 1 < n ? j + 1 : j;
+    const float* aj = A + j * ld;
+    const float* aj1 = A + j1 * ld;
+    float t[R], u[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      t[q] = u[q] = 0.0f;
+      if (R > 1 && 32 * q + 31 < j) continue;  // this slot's rows are done
+      float t0 = 0.0f, t1 = 0.0f, u0 = 0.0f, u1 = 0.0f;
+      int k = 0;
+      for (; k + 2 <= j; k += 2) {
+        const float a0 = ai[q][k], a1 = ai[q][k + 1];
+        t0 -= a0 * aj[k];
+        u0 -= a0 * aj1[k];
+        t1 -= a1 * aj[k + 1];
+        u1 -= a1 * aj1[k + 1];
+      }
+      if (k < j) {
+        t0 -= ai[q][k] * aj[k];
+        u0 -= ai[q][k] * aj1[k];
+      }
+      t[q] = ai[q][j] + (t0 + t1);
+      u[q] = u0 + u1;
+    }
+    const float s = mx(__shfl_sync(FULL_MASK, pick(t, j), src<R>(j)),
+                       EPS_CHOL);
+    const float r = rsqrtf(s);
+    float lj[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      lj[q] = lane + 32 * q == j ? s * r : t[q] * r;
+    const float lj1 = __shfl_sync(FULL_MASK, pick(lj, j1), src<R>(j1));
+#pragma unroll
+    for (int q = 0; q < R; ++q) u[q] = ai[q][j1] + u[q] - lj[q] * lj1;
+    const float s1 = mx(__shfl_sync(FULL_MASK, pick(u, j1), src<R>(j1)),
+                        EPS_CHOL);
+    const float r1 = rsqrtf(s1);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + 32 * q;
+      if (i >= j && i < n) A[i * ld + j] = lj[q];
+      if (i == j) inv[j] = r;
+      if (j1 > j && i >= j1 && i < n)
+        A[i * ld + j1] = i == j1 ? s1 * r1 : u[q] * r1;
+      if (j1 > j && i == j1) inv[j1] = r1;
+    }
+    __syncwarp();
+  }
+}
+
+// warp_chol_solve for n <= 32 R: the lane of row i holds b_i on entry
+// and x_i on return (rows >= n hold 0)
+template <int R>
+__device__ inline void warp_chol_solve_rows(const float* L, const float* inv,
+                                            int n, int ld, float (&b)[R]) {
+  const int lane = lane_id();
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (lane + 32 * q >= n) b[q] = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const float yk = __shfl_sync(FULL_MASK, pick(b, k), src<R>(k)) * inv[k];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + 32 * q;
+      const float lik = L[min(i, n - 1) * ld + k];
+      b[q] = i == k ? yk : (i > k && i < n ? b[q] - lik * yk : b[q]);
+    }
+  }
+  for (int k = n - 1; k >= 0; --k) {
+    const float xk = __shfl_sync(FULL_MASK, pick(b, k), src<R>(k)) * inv[k];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = lane + 32 * q;
+      const float lki = L[k * ld + min(i, k)];
+      b[q] = i == k ? xk : (i < k ? b[q] - lki * xk : b[q]);
+    }
+  }
+}
+
+// warp_tri_inv for n <= 32 R: the lane of column i substitutes it
+template <int R>
+__device__ inline void warp_tri_inv_rows(const float* L, const float* inv, int n,
+                                    int ld, float* Li) {
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = lane_id() + 32 * q;
+    if (i < n) {
+      for (int k = i; k < n; ++k) {
+        float s0 = k == i ? 1.0f : 0.0f, s1 = 0.0f;
+        int m = i;
+        for (; m + 2 <= k; m += 2) {
+          s0 -= L[k * ld + m] * Li[m * ld + i];
+          s1 -= L[k * ld + m + 1] * Li[(m + 1) * ld + i];
+        }
+        if (m < k) s0 -= L[k * ld + m] * Li[m * ld + i];
+        Li[k * ld + i] = (s0 + s1) * inv[k];
+      }
     }
   }
   __syncwarp();

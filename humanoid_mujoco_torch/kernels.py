@@ -30,7 +30,8 @@ SIGNATURES = {
                [_P, _P, _P, _P, _I] + [_P] * 10 + [_P] * 13 + [_I, _P]),
     "solver": ("hm_solve", [_P] * 17 + [_P] * 3 + [_P] * 8 + [_P] * 4
                + [_I] * 10 + [_P]),
-    "euler": ("hm_solve_euler", [_P] * 11 + [_P] * 5 + [_I] * 5 + [_P]),
+    "euler": ("hm_solve_euler", [_P] * 11 + [_P] * 4 + [_P] + [_I] * 7
+              + [_P]),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

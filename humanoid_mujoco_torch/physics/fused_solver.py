@@ -92,7 +92,7 @@ def _grid(ls_iter, device):
 
 
 SMEM_MAX = 232_448    # dynamic shared memory one block may use (H100)
-ENVS_PER_BLOCK = 4    # kernel B2: one warp per env, this many per block
+ENVS_PER_BLOCK = 4    # B2, B3: one warp per env, at most this many a block
 NV_MAX = 32           # kernel B2: one lane per dof in its warp solves
 _CHAINS = WeakIdKeyDictionary()
 
@@ -285,9 +285,80 @@ def solve_constraints_euler_reference(M, qf, qv, J, pos, k, b, d, hdamp,
     return qacc, qv + dv, f, qfc
 
 
-def euler_scratch_floats(nv: int, ne: int) -> int:
-    """Per-env scratch of kernel B3 (the Carver layout in euler.cu)."""
-    return 2 * nv * nv + 6 * nv + 3 * ne
+EULER_NV_MAX = 64    # kernel B3: two matrix rows per lane in its warp solves
+
+
+def euler_smem_bytes(nv: int, ne: int, envs: int = 1) -> int:
+    """Dynamic shared memory of one block of kernel B3 with `envs` warps
+    (csrc/euler.cu make_layout): per env M and H (row stride nv | 1), J
+    (ne rows at the same stride), D, aref and r per row, a work area for
+    L⁻¹ or two floats per row, six nv-vectors and the active-row list,
+    all float32 / int32, rounded up to 16 bytes."""
+    ld = nv | 1
+    env = (2 * nv * ld + ne * ld + 3 * ne + max(nv * ld, 2 * ne) + 6 * nv
+           + ne)
+    return 4 * envs * _round_up(env, 4)
+
+
+def euler_block_shape(nv: int, ne: int):
+    """(envs per block, shared bytes per block) of kernel B3, or a
+    ValueError when nv exceeds the kernel's or one env's working set
+    does not fit a block."""
+    if not 1 <= nv <= EULER_NV_MAX:
+        raise ValueError(f"kernel B3 takes 1 to {EULER_NV_MAX} dofs, got {nv}")
+    one = euler_smem_bytes(nv, ne)
+    if one > SMEM_MAX:
+        raise ValueError(f"kernel B3 needs {one} bytes of shared memory for "
+                         f"one env (nv {nv}, {ne} rows); a block has "
+                         f"{SMEM_MAX}")
+    envs = ENVS_PER_BLOCK
+    while euler_smem_bytes(nv, ne, envs) > SMEM_MAX:
+        envs -= 1
+    return envs, euler_smem_bytes(nv, ne, envs)
+
+
+def _euler_launch_args(M, qf, qv, J, pos, k, b, d, hdamp, dt, niter,
+                       ls_iter):
+    """Kernel B3's C arguments for checked inputs: (pointer tensors,
+    ints, outputs (qacc, qvn, f, qfc) batch-first). The inputs are read
+    in place at their strides (an int32 host tensor, the first pointer
+    after the outputs): no copies. Raises ValueError before any launch
+    when the model does not fit the kernel."""
+    B, ne, nv = J.shape
+    dev = M.device
+    envs, smem = euler_block_shape(nv, ne)
+    f32 = torch.float32
+    hd = torch.as_tensor(hdamp, dtype=f32, device=dev)
+    dtt = torch.as_tensor(dt, dtype=f32, device=dev)
+    if hd.shape != (nv,) or dtt.numel() != 1:
+        raise ValueError("hdamp must be (nv,) and dt one value, shared by "
+                         "the batch")
+    ins = (M, qf, qv, J, pos, k, b, d)
+    strides = torch.tensor([s for x in ins for s in x.stride()],
+                           dtype=torch.int32)
+    outs = tuple(torch.empty(shape, dtype=f32, device=dev)
+                 for shape in ((B, nv), (B, nv), (B, ne), (B, nv)))
+    ins = ins + (hd.contiguous(), dtt.reshape(1), _grid(ls_iter, dev))
+    return ins, (strides, B, nv, ne, niter, ls_iter, envs, smem), outs
+
+
+def euler_occupancy(nv: int, ne: int):
+    """Kernel B3's occupancy on the current card at the block shape the
+    wrapper launches: envs per block, shared bytes per env and per
+    block, blocks per SM, registers and local (spill) bytes per thread."""
+    import ctypes
+    from .. import kernels
+    envs, smem = euler_block_shape(nv, ne)
+    fn = kernels.load("euler").hm_solve_euler_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    err = fn(nv, ne, envs, smem, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"hm_solve_euler_occupancy failed: cudaError "
+                           f"{err}")
+    return {"envs_per_block": envs, "smem_per_env": euler_smem_bytes(nv, ne),
+            "smem_per_block": smem, "blocks_per_sm": out[0],
+            "registers": out[1], "local_bytes": out[2]}
 
 
 def solve_constraints_euler(M, qf, qv, J, pos, k, b, d, hdamp, dt,
@@ -295,8 +366,10 @@ def solve_constraints_euler(M, qf, qv, J, pos, k, b, d, hdamp, dt,
     """Constraint Newton solve + implicit-damping Euler on explicit rows.
 
     Batch-leading inputs: M (B, nv, nv), qf/qv (B, nv), J (B, ne, nv),
-    pos/k/b/d (B, ne); hdamp (nv,) and dt () shared by the batch.
-    Returns (qacc, qvel_new, efc_force (B, ne), qfrc_constraint).
+    pos/k/b/d (B, ne), at any strides (on the card the kernel reads them
+    in place: an expanded static J costs nothing); hdamp (nv,) and dt ()
+    shared by the batch. Returns (qacc, qvel_new, efc_force (B, ne),
+    qfrc_constraint), contiguous.
     """
     global EULER_LAUNCHES
     if M.device.type == "cpu":
@@ -319,25 +392,9 @@ def solve_constraints_euler(M, qf, qv, J, pos, k, b, d, hdamp, dt,
                              f"expected {shape}")
     if not 2 <= ls_iter <= LS_MAX:
         raise ValueError(f"ls_iter must be in [2, {LS_MAX}]")
-    f32 = torch.float32
-    hd = torch.as_tensor(hdamp, dtype=f32, device=dev)
-    dtt = torch.as_tensor(dt, dtype=f32, device=dev)
-    if hd.shape != (nv,) or dtt.numel() != 1:
-        raise ValueError("hdamp must be (nv,) and dt one value, shared by "
-                         "the batch")
-    ins = (M.permute(1, 2, 0).contiguous(), qf.t().contiguous(),
-           qv.t().contiguous(), J.permute(1, 2, 0).contiguous(),
-           *(x.t().contiguous() for x in (pos, k, b, d)),
-           hd.contiguous(), dtt.reshape(1).contiguous(),
-           _grid(ls_iter, dev))
-    qacc = torch.empty((nv, B), dtype=f32, device=dev)
-    qvn = torch.empty((nv, B), dtype=f32, device=dev)
-    f = torch.empty((ne, B), dtype=f32, device=dev)
-    qfc = torch.empty((nv, B), dtype=f32, device=dev)
-    scratch = torch.empty((euler_scratch_floats(nv, ne), B), dtype=f32,
-                          device=dev)
-    outs = (qacc, qvn, f, qfc, scratch)
-    kernels.launch("euler", *(t.data_ptr() for t in ins + outs),
-                   B, nv, ne, niter, ls_iter)
+    ins, (strides, *ints), outs = _euler_launch_args(
+        M, qf, qv, J, pos, k, b, d, hdamp, dt, niter, ls_iter)
+    kernels.launch("euler", *(t.data_ptr() for t in ins + outs + (strides,)),
+                   *ints)
     EULER_LAUNCHES += 1
-    return qacc.t(), qvn.t(), f.t(), qfc.t()
+    return outs

@@ -13,7 +13,10 @@ limits (active limit rows) and moving links (fluid drag):
   in interpret mode) in float32 at 5e-5, the tolerance of
   tests/test_pallas.py;
 - `engine.prepare_smooth` (the plain smooth stage of the Swimmer's step)
-  against the JAX `_prepare_smooth`, float64 at 1e-9.
+  against the JAX `_prepare_smooth`, float64 at 1e-9;
+- kernel B3's shared-memory sizing against a hand count of its layout,
+  its refusals, and its argument builder reading the inputs in place
+  (the kernel itself runs on the card, in chip_smoke.py).
 
 Tolerances are max-abs error over max-abs value. The interpret-mode
 reference takes ~20 s and is built in a background thread by
@@ -182,7 +185,74 @@ def check_b3_on_cpu_is_the_twin():
     assert fused_solver.EULER_LAUNCHES == n0
 
 
+def check_euler_shared_memory_sizing():
+    """Kernel B3's shared memory (`euler_smem_bytes`) against a hand count
+    of csrc/euler.cu's layout, its block shapes, and the models it
+    refuses before any launch."""
+    def hand(nv, ne):
+        ld = nv | 1                        # odd row stride
+        floats = (2 * nv * ld              # M and H
+                  + ne * ld                # J
+                  + 3 * ne                 # D, aref, r
+                  + max(nv * ld, 2 * ne)   # L⁻¹ / (Da, Da r) per row
+                  + 6 * nv                 # six nv-vectors
+                  + ne)                    # active-row list
+        return 4 * (-(-floats // 4) * 4)
+    cases = {(8, 10): (396 * 4, 4), (18, 694): (18144 * 4, 3),
+             (36, 360): (18972 * 4, 3)}    # Swimmer, humanoid rows, nv 36
+    for (nv, ne), (nbytes, envs) in cases.items():
+        assert fused_solver.euler_smem_bytes(nv, ne) == hand(nv, ne) == nbytes
+        assert fused_solver.euler_block_shape(nv, ne) == (
+            envs, envs * nbytes)
+        assert envs * nbytes <= fused_solver.SMEM_MAX
+    for nv, ne, what in ((65, 4, "dofs"), (0, 4, "dofs"),
+                         (36, 1400, "bytes of shared memory")):
+        try:
+            fused_solver.euler_block_shape(nv, ne)
+        except ValueError as e:
+            assert what in str(e), e
+        else:
+            raise AssertionError(f"nv {nv}, {ne} rows not refused")
+
+
+def check_euler_launch_args():
+    """Kernel B3's argument builder on the Swimmer's step inputs reads
+    them in place at their strides, copying nothing: the static limit
+    Jacobian expanded over the batch (batch stride 0), the shared b
+    (expanded over rows too) and M as the transposed view the smooth
+    stage returns; outputs are contiguous batch-first; bad shared
+    damping is refused."""
+    m = tswimmer.swimmer_model(dtype=torch.float32, device="cpu")
+    qpos, qvel, ctrl = (torch.tensor(x, dtype=torch.float32)
+                        for x in swimmer_states())
+    _, _, M, qf = engine.prepare_smooth(m, qpos, qvel, ctrl)
+    rows = make_rows(m, qpos)
+    args = (M, qf, qvel, rows.J, rows.pos, rows.k, rows.b, rows.d)
+    hd = m.dt * m.dof_damping
+    ins, (strides, *ints), outs = fused_solver._euler_launch_args(
+        *args, hd, m.dt, 8, 16)
+    ne = rows.J.shape[1]
+    assert all(x is y for x, y in zip(ins, args))
+    assert strides.dtype == torch.int32 and strides.device.type == "cpu"
+    assert strides.tolist() == [s for x in args for s in x.stride()]
+    assert rows.J.stride()[0] == 0 and rows.b.stride() == (0, 0)
+    assert not M[0].is_contiguous()
+    assert ints == [B, 8, ne, 8, 16, 4,
+                    4 * fused_solver.euler_smem_bytes(8, ne)]
+    assert [tuple(o.shape) for o in outs] == [(B, 8), (B, 8), (B, ne),
+                                              (B, 8)]
+    assert all(o.is_contiguous() for o in outs)
+    try:
+        fused_solver._euler_launch_args(*args, hd[:5], m.dt, 8, 16)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("hdamp of the wrong shape was not refused")
+
+
 def run_checks():
+    check_euler_shared_memory_sizing()
+    check_euler_launch_args()
     check_fluid_force()
     check_prepare_smooth()
     for plan_dt in (None, 0.02):

@@ -1,14 +1,18 @@
-"""Where kernel B2's time goes, phase by phase, on the GPU.
+"""Where kernels B2 and B3 spend their time, phase by phase, on the GPU.
 
-Builds an instrumented copy of humanoid_mujoco_torch/csrc/solver.cu into
-build/solver_phases/ (the shipped kernel is not touched): before each
-phase marker below, the warp reads clock64() and lane 0 adds the cycles
-since the previous marker to a per-env counter. It runs the copy once on
-the stand rollout's states (chip_smoke.headline, 50 steps in) and once
-on chip_smoke's random stand states, at B = 1024, and prints per phase
-the mean cycles per env and its share. The Newton phases are summed over
-the iterations; the residual pass also carries the previous iteration's
-step update. The markers add a __syncwarp and a clock read each, so the
+Builds an instrumented copy of humanoid_mujoco_torch/csrc/solver.cu (B2)
+and of csrc/euler.cu (B3) into build/solver_phases/ (the shipped kernels
+are not touched): before each phase marker below, the warp reads
+clock64() and adds the cycles since the previous marker to that phase's
+counter in registers; after the last marker lane 0 writes the counters
+to a per-env slot in global memory. It runs B2 once on the stand
+rollout's states (chip_smoke.headline, 50 steps in) and once on
+chip_smoke's random stand states, and B3 on the Swimmer's rows (chip_smoke.swimmer_states) and on
+the humanoid's 694 selection-free rows (rows_from_raw of chip_smoke's
+stand states), at B = 1024, and prints per phase the mean cycles per env
+and its share. The Newton phases are summed over the iterations; the
+residual pass also carries the previous iteration's step update. The
+markers add a __syncwarp, a clock read and an add each, so an
 instrumented kernel runs a little slower than the shipped one (its time
 is printed beside).
 
@@ -33,8 +37,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# (text in solver.cu that starts a phase, name of the phase it ends)
-MARKS = (
+# per kernel, (text in its source that starts a phase, name of the phase
+# it ends)
+B2_MARKS = (
     ("  // ---- lanes over slots: tangent frame", "load inputs"),
     ("  // ---- Cholesky of M (in H)", "frames and base rows"),
     ("  // ---- lanes over slots: Gram terms", "chol(M), a_smooth, L^-1"),
@@ -50,11 +55,29 @@ MARKS = (
     ("  // ---- implicit-damping Euler", "final forces"),
     ("  if (lane < nv) {\n    const float h = __ldg(a.dt);", "Euler"),
 )
+B3_MARKS = (
+    ("  // ---- Cholesky of M (in H)", "load inputs"),
+    ("  // ---- lanes over rows: diag(J", "chol(M), a_smooth, L^-1"),
+    ("  // H's lower-triangle entries", "Gram: diag(J M^-1 J^T), D, aref"),
+    ("    // lanes over dofs: M (x - a_smooth)", "residuals, active set"),
+    ("    // H = M + J", "gradient"),
+    ("    __syncwarp();\n    chol<R>(H, nv, ld, INV);\n    float pu[R];",
+     "Hessian"),
+    ("    // ---- line search on the fixed grid ----", "chol(H), solve"),
+    ("    // lanes over (row, grid point)", "line search: J p"),
+    ("    // piecewise-linear monotone dphi", "line search: grid"),
+    ("  // ---- final forces", "line search: step (last)"),
+    ("  // ---- implicit-damping Euler", "final forces"),
+    ("  const float h = __ldg(a.dt);", "Euler"),
+)
+MARKS = {"solver": B2_MARKS, "euler": B3_MARKS}
 PROBE = r'''
 __device__ unsigned long long g_phase[4096 * 16];
 #define PHASE(k) do { __syncwarp(); const long long t_ = clock64(); \
-  if (lane == 0 && e < 4096) g_phase[e * 16 + (k)] += t_ - t_last; \
-  t_last = t_; } while (0)
+  ph_[k] += (unsigned)(t_ - t_last); t_last = t_; } while (0)
+#define PHASE_FLUSH() do { if (lane == 0 && e < 4096) \
+  for (int k_ = 0; k_ < 16; ++k_) g_phase[e * 16 + k_] += ph_[k_]; \
+  } while (0)
 '''
 READ = r'''
 extern "C" int hm_phase_read(unsigned long long* out, int n) {
@@ -67,36 +90,39 @@ extern "C" int hm_phase_zero() {
 '''
 
 
-def instrumented_source() -> str:
+def instrumented_source(name: str) -> str:
     src = open(os.path.join(ROOT, "humanoid_mujoco_torch", "csrc",
-                            "solver.cu")).read()
-    for k, (mark, _) in enumerate(MARKS):
+                            f"{name}.cu")).read()
+    marks = MARKS[name]
+    for k, (mark, _) in enumerate(marks):
         if src.count(mark) != 1:
             raise RuntimeError(f"phase marker not found once: {mark!r}")
-        src = src.replace(mark, f"  PHASE({k});\n" + mark)
+        flush = "  PHASE_FLUSH();\n" if k == len(marks) - 1 else ""
+        src = src.replace(mark, f"  PHASE({k});\n" + flush + mark)
     start = "  if (e >= B) return;"
     if src.count(start) != 1:
         raise RuntimeError("kernel entry marker not found")
-    src = src.replace(start, start + "\n  long long t_last = clock64();")
+    src = src.replace(start, start + "\n  long long t_last = clock64();\n"
+                      "  unsigned ph_[16] = {0};")
     src = src.replace('#include "common.cuh"', '#include "common.cuh"\n'
                       + PROBE)
     return src + READ
 
 
-def build():
+def build(name: str):
     from humanoid_mujoco_torch import kernels
     out = os.path.join(ROOT, "build", "solver_phases")
     os.makedirs(out, exist_ok=True)
-    src = os.path.join(out, "solver_phases.cu")
+    src = os.path.join(out, f"{name}_phases.cu")
     with open(src, "w") as f:
-        f.write(instrumented_source())
-    lib = os.path.join(out, "libsolver_phases.so")
+        f.write(instrumented_source(name))
+    lib = os.path.join(out, f"lib{name}_phases.so")
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS,
                     "-I", os.path.join(ROOT, "humanoid_mujoco_torch", "csrc"),
                     "-o", lib, src], check=True, capture_output=True)
     so = ctypes.CDLL(lib)
-    name, argtypes = kernels.SIGNATURES["solver"]
-    fn = getattr(so, name)
+    fn_name, argtypes = kernels.SIGNATURES[name]
+    fn = getattr(so, fn_name)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return so, fn
 
@@ -107,6 +133,45 @@ def solve_inputs(m, qpos, qvel, ctrl):
     raw = fused_smooth.smooth_raw(m, qpos, qvel, ctrl)
     return (raw[0], raw[1], qvel, *raw[2:7], contact_dmask(m), *raw[7:14],
             m.dt * m.dof_damping, m.dt)
+
+
+def b2_cases(B):
+    """B2's launch arguments on the rollout's and the smoke's states."""
+    import chip_smoke
+    from humanoid_mujoco_torch.physics import fused_solver, humanoid
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    m = humanoid.build_humanoid(device="cuda")
+    lim_tab = limit_rows_static(m)
+    _, rollout = chip_smoke.headline(m, B, 50)
+    end = rollout().final_state
+    cases = {"rollout": solve_inputs(m, end.qpos, end.qvel,
+                                     torch.zeros(B, m.nu, device="cuda")),
+             "smoke": solve_inputs(m, *chip_smoke.states(m, B))}
+    return {label: fused_solver._solver_launch_args(*args, lim_tab, 8, 16)
+            for label, args in cases.items()}
+
+
+def b3_cases(B):
+    """B3's launch arguments on the Swimmer's rows and on the humanoid's
+    selection-free rows."""
+    import chip_smoke
+    from humanoid_mujoco_torch.physics import fused_solver, humanoid
+    from humanoid_mujoco_torch.physics.solver import (limit_rows_static,
+                                                      rows_from_raw)
+    from humanoid_mujoco_torch.tasks import task_model
+    sw = task_model("Swimmer", device="cuda")
+    swim = chip_smoke.swimmer_solve_inputs(sw, *chip_smoke.swimmer_states(
+        sw, B))
+    m = humanoid.build_humanoid(device="cuda")
+    (M, qf, qv, cdof, rel, nrm, dist, mu3, dmask, kc, bc, dc, lpos, kl, bl,
+     dl, hdamp, h) = solve_inputs(m, *chip_smoke.states(m, B))
+    rows = rows_from_raw(cdof, dmask, rel, nrm, dist, mu3, kc, bc, dc,
+                         limit_rows_static(m), lpos, kl, bl, dl)
+    hum = (M, qf, qv, rows.J.contiguous(), rows.pos, rows.k, rows.b,
+           rows.d, hdamp, h)
+    return {label: fused_solver._euler_launch_args(*args, 8, 16)
+            for label, args in (("swimmer_rows", swim),
+                                ("humanoid_rows", hum))}
 
 
 def main():
@@ -120,45 +185,39 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    import chip_smoke
-    from humanoid_mujoco_torch.physics import fused_solver, humanoid
-    from humanoid_mujoco_torch.physics.solver import limit_rows_static
-    so, fn = build()
-    m = humanoid.build_humanoid(device="cuda")
-    lim_tab = limit_rows_static(m)
-    _, rollout = chip_smoke.headline(m, B, 50)
-    end = rollout().final_state
-    cases = {"rollout": solve_inputs(m, end.qpos, end.qvel,
-                                     torch.zeros(B, m.nu, device="cuda")),
-             "smoke": solve_inputs(m, *chip_smoke.states(m, B))}
     stream = torch.cuda.current_stream().cuda_stream
-    for label, args in cases.items():
-        ins, ints, outs = fused_solver._solver_launch_args(
-            *args, lim_tab, 8, 16)
-        ptrs = [t.data_ptr() for t in ins + outs]
-        if fn(*ptrs, *ints, stream) or so.hm_phase_zero():    # warm-up
-            raise RuntimeError("instrumented launch failed")
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        if fn(*ptrs, *ints, stream):
-            raise RuntimeError("instrumented launch failed")
-        b.record()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (16 * B))()
-        if so.hm_phase_read(buf, B):
-            raise RuntimeError("reading the phase counters failed")
-        cyc = np.frombuffer(buf, dtype=np.uint64).reshape(B, 16)
-        mean = cyc[:, :len(MARKS)].astype(np.float64).mean(axis=0)
-        total = float(mean.sum())
-        print(json.dumps({
-            "states": label, "batch": B,
-            "instrumented_ms": a.elapsed_time(b),
-            "cycles_per_env": total,
-            "phases": [{"phase": name, "cycles": float(c),
-                        "share": float(c) / total}
-                       for (_, name), c in zip(MARKS, mean)]}, indent=1))
+    for name in ("solver", "euler"):
+        so, fn = build(name)
+        cases = b2_cases(B) if name == "solver" else b3_cases(B)
+        for label, (ins, ints, outs) in cases.items():
+            ptrs = [t.data_ptr() for t in ins + outs]
+            # B3's strides: a host int32 tensor, the pointer after outs
+            ints = [x.data_ptr() if torch.is_tensor(x) else x for x in ints]
+            if fn(*ptrs, *ints, stream) or so.hm_phase_zero():  # warm-up
+                raise RuntimeError("instrumented launch failed")
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            if fn(*ptrs, *ints, stream):
+                raise RuntimeError("instrumented launch failed")
+            b.record()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_ulonglong * (16 * B))()
+            if so.hm_phase_read(buf, B):
+                raise RuntimeError("reading the phase counters failed")
+            cyc = np.frombuffer(buf, dtype=np.uint64).reshape(B, 16)
+            marks = MARKS[name]
+            mean = cyc[:, :len(marks)].astype(np.float64).mean(axis=0)
+            total = float(mean.sum())
+            print(json.dumps({
+                "kernel": name, "states": label, "batch": B,
+                "instrumented_ms": a.elapsed_time(b),
+                "cycles_per_env": total,
+                "phases": [{"phase": phase, "cycles": float(c),
+                            "share": float(c) / total}
+                           for (_, phase), c in zip(marks, mean)]},
+                indent=1))
 
 
 if __name__ == "__main__":
