@@ -9,11 +9,12 @@ csrc/euler.cu, one nvcc each for sm_90a, started together) and drives
 the port's two paths:
 
 - the humanoid (kernels B1 + B2): each kernel and the whole step against
-  the plain PyTorch twins on the card (B = 1024, an odd B = 300, and B2
-  also at B = 1); B2's bitwise repeat, the isolation of a NaN env (only
-  it diverges, the others keep their bits) and its refusal of a model
-  too large for a block's shared memory; the 1024 x 100 stand rollout
-  and three 1024-sample predictive-sampling plans;
+  the plain PyTorch twins on the card (B = 1024, an odd B = 300, B1 there
+  with per-body wrenches, and B = 1); each kernel's bitwise repeat, the
+  isolation of a NaN env (only its outputs turn non-finite, only it
+  diverges, the others keep their bits) and its refusal of a model too
+  large for a block's shared memory; the 1024 x 100 stand rollout and
+  three 1024-sample predictive-sampling plans;
 - the Swimmer (plain smooth stage + kernel B3): B3 against its twin on
   Swimmer states (B = 1024, an odd B = 300 and B = 1) and on a
   Rubik-sized synthetic solve (nv 36, 360 rows, B = 300), and against B2
@@ -24,11 +25,12 @@ the port's two paths:
   toward a target with the task's transition on.
 
 Each path is driven with the kernels' launch counters set to 0 just
-before it and read just after. The `environment` line carries B2's
-occupancy and B3's on the Swimmer's rows, the humanoid's rows and the
-nv-36 case (shared bytes per env and per block, blocks per SM, registers
-and spills). It prints a `kernels` JSON line (time,
-launch count, plain-twin time and roofline bound per kernel). The last
+before it and read just after. The `environment` line carries B1's and
+B2's occupancy on the humanoid and B3's on the Swimmer's rows, the
+humanoid's rows and the nv-36 case (envs and shared bytes per block,
+shared bytes per env, blocks per SM, registers and spills). It prints a
+`kernels` JSON line (time, launch count, plain-twin time and roofline
+bound per kernel). The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -268,6 +270,80 @@ def isolation(m, solve, args, model_states, env=7):
             "others_bitwise_equal": True}
 
 
+def smooth_vs_twin(m, B, seed, xfrc_seed=None):
+    """B1 against its twin at batch B on `states` (numpy seed), with
+    per-body wrenches from `xfrc_seed` when it is given. Returns the max
+    relative error over the 22 outputs."""
+    from humanoid_mujoco_torch.physics import fused_smooth
+    qpos, qvel, ctrl = states(m, B, seed=seed)
+    xfrc = None
+    if xfrc_seed is not None:
+        rng = np.random.default_rng(xfrc_seed)
+        xfrc = torch.tensor(rng.standard_normal((B, m.struct.nbody, 6)),
+                            dtype=m.dtype, device=m.device)
+    ker = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
+    ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl, xfrc)
+    return max(rel_err(r, o, n)
+               for n, r, o in zip(fused_smooth.NAMES, ref, ker))
+
+
+def smooth_isolation(m, qpos, qvel, ctrl, env=7):
+    """B1 on the main states: two launches give the same bits; a NaN in
+    one env's qvel makes that env's qfrc_smooth non-finite and leaves
+    every other env's 22 outputs bitwise unchanged."""
+    from humanoid_mujoco_torch.physics import fused_smooth
+    first = fused_smooth.smooth_raw(m, qpos, qvel, ctrl)
+    again = fused_smooth.smooth_raw(m, qpos, qvel, ctrl)
+    assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+        "B1 differs between two launches on the same inputs"
+    qv = qvel.clone()
+    qv[env, 3] = float("nan")
+    poisoned = fused_smooth.smooth_raw(m, qpos, qv, ctrl)
+    rest = torch.arange(qv.shape[0], device=qv.device) != env
+    nonfinite = [n for n, p in zip(fused_smooth.NAMES, poisoned)
+                 if not bool(torch.isfinite(p[env]).all())]
+    assert "qfrc_smooth" in nonfinite, nonfinite
+    assert all(torch.equal(a[rest], b[rest])
+               for a, b in zip(first, poisoned)), \
+        "a NaN env changed another env's B1 outputs"
+    return {"bitwise_repeat": True, "nan_env": env,
+            "nonfinite_outputs": nonfinite, "others_bitwise_equal": True}
+
+
+def smooth_oversize_model(device, n=250):
+    """A chain of `n` hinge bodies with one sphere on the floor: inside
+    B1's family (fused_smooth.supported), but its M alone (n² floats)
+    outgrows a block's shared memory."""
+    from humanoid_mujoco_torch.physics.model import JointType, ModelBuilder
+    b = ModelBuilder()
+    body = -1
+    for i in range(n):
+        body = b.add_body(f"link{i}", body, pos=(0.0, 0.0, 0.01), mass=0.01,
+                          inertia=(1e-4, 1e-4, 1e-4))
+        b.add_joint(f"hinge{i}", body, JointType.HINGE, axis=(0, 1, 0))
+    b.add_sphere(body, radius=0.02)
+    return b.finalize(device=device)
+
+
+def smooth_refuses_oversize(device):
+    """`smooth_oversize_model` is refused with ValueError before any
+    launch. Returns the bytes one env would need."""
+    from humanoid_mujoco_torch.physics import fused_smooth
+    m = smooth_oversize_model(device)
+    B = 2
+    z = torch.zeros((B, m.nv), dtype=torch.float32, device=device)
+    qpos = torch.zeros((B, m.nq), dtype=torch.float32, device=device)
+    n = fused_smooth.LAUNCHES
+    try:
+        fused_smooth.smooth_raw(m, qpos, z, z[:, :0])
+    except ValueError as e:
+        assert "bytes of shared memory" in str(e), e
+    else:
+        raise AssertionError("an oversize model was not refused by B1")
+    assert fused_smooth.LAUNCHES == n
+    return fused_smooth.smooth_smem_bytes(fused_smooth.smooth_dims(m))
+
+
 def solver_refuses_oversize(m, device, slots=2000):
     """A model whose per-env working set exceeds a block's shared memory
     (`slots` contact slots over all dofs) is refused with ValueError
@@ -295,33 +371,34 @@ def solver_refuses_oversize(m, device, slots=2000):
     return fused_solver.solver_smem_bytes(nv, slots, nlim, slots * nv)
 
 
-def kernel_edges(m, device, solve_in, lim_tab, B=300):
-    """Both kernels at a batch that is not a multiple of a block (B1's
-    128 threads, B2's 4 envs), B1 with per-body wrenches; B2 alone at
-    B = 1 and, on the main states, its bitwise repeat and the isolation
-    of a NaN env; on the card, the inputs the wrappers must refuse.
-    Returns the max relative error per kernel and the checks' results."""
+def kernel_edges(m, device, solve_in, lim_tab, main_states, B=300):
+    """Both kernels at a batch that is not a multiple of a block (B1's 8
+    envs, B2's 4), B1 with per-body wrenches, and both at B = 1; on the
+    main states, each kernel's bitwise repeat and the isolation of a NaN
+    env; on the card, the models too large for a block and the inputs
+    the wrappers must refuse. Returns the max relative error per kernel
+    and the checks' results."""
     from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
                                                humanoid)
     from humanoid_mujoco_torch.physics.solver import contact_dmask
     qpos, qvel, ctrl = states(m, B, seed=2)
-    rng = np.random.default_rng(3)
-    xfrc = torch.tensor(rng.standard_normal((B, m.struct.nbody, 6)),
-                        dtype=m.dtype, device=m.device)
-    ker = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
-    ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl, xfrc)
-    e1 = max(rel_err(r, o, n)
-             for n, r, o in zip(fused_smooth.NAMES, ref, ker))
+    e1 = smooth_vs_twin(m, B, seed=2, xfrc_seed=3)
+    e1_one = smooth_vs_twin(m, 1, seed=4)
+    ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl)
     args = (ref[0], ref[1], qvel, *ref[2:7], contact_dmask(m), *ref[7:14],
             m.dt * m.dof_damping, m.dt)
     e2 = max(rel_err(r, o) for r, o in zip(
         fused_solver.solve_step_raw_reference(*args, lim_tab=lim_tab),
         fused_solver.solve_step_raw(*args, lim_tab=lim_tab)))
     e2_one = solver_vs_twin(m, 1, seed=4)
-    assert e1 <= TOL and e2 <= TOL and e2_one <= TOL, (e1, e2, e2_one)
-    out = {"batch": B, "smooth_xfrc_rel_err": e1, "solver_rel_err": e2,
+    assert max(e1, e1_one, e2, e2_one) <= TOL, (e1, e1_one, e2, e2_one)
+    out = {"batch": B, "smooth_xfrc_rel_err": e1,
+           "smooth_rel_err_batch_1": e1_one, "solver_rel_err": e2,
            "solver_rel_err_batch_1": e2_one}
     if device != "cpu":
+        out["smooth_isolation"] = smooth_isolation(m, *main_states)
+        out["smooth_oversize_bytes_refused"] = smooth_refuses_oversize(
+            device)
         out["solver_isolation"] = isolation(
             m, lambda *a: fused_solver.solve_step_raw(*a, lim_tab=lim_tab),
             solve_in, states)
@@ -796,9 +873,9 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     assert errs4[worst4] <= TOL, f"step {worst4}: {errs4[worst4]:.3e}"
     assert not bool(info_k.diverged.any()), "step diverged"
 
-    # ---- 4b. odd batch, wrenches, refused inputs ----
+    # ---- 4b. odd batch, wrenches, B = 1, isolation, refusals ----
     log("kernel_edges", tol=TOL,
-        **kernel_edges(m, device, solve_in, lim_tab))
+        **kernel_edges(m, device, solve_in, lim_tab, (qpos, qvel, ctrl)))
 
     # ---- 5. headline: the bench.py rollout (stand task, spline policy) ----
     task, rollout = headline(m, B, horizon)
@@ -912,11 +989,13 @@ def main():
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if "registers" in ln or "spill" in ln]
              for k, v in kernels.BUILD_LOG.items()}
-    from humanoid_mujoco_torch.physics import fused_solver, humanoid
+    from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
+                                               humanoid)
     from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                       limit_rows_static)
     from humanoid_mujoco_torch.tasks import task_model
     hm = humanoid.build_humanoid(device="cuda")
+    smooth_occ = fused_smooth.smooth_occupancy(hm)
     nlim = len(limit_rows_static(hm))
     occupancy = fused_solver.solver_occupancy(
         hm.nv, hm.ncon, nlim,
@@ -927,7 +1006,8 @@ def main():
                                 (hm.nv, nlim + 10 * hm.ncon), (36, 360))}
     log("environment", gpu=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
-        solver_occupancy=occupancy, euler_occupancy=euler_occ,
+        smooth_occupancy=smooth_occ, solver_occupancy=occupancy,
+        euler_occupancy=euler_occ,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)

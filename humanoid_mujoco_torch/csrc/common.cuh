@@ -2,18 +2,15 @@
 // humanoid step (smooth.cu, solver.cu) and of the explicit-row solve
 // (euler.cu).
 //
-// Layout of B1's and B2's inputs and outputs: batch-last. Every per-env
-// array is stored [..., B], so element i of env e lives at p[i * B + e].
-// `In` / `Out` are such strided views, already offset to one
-// environment. B3 (euler.cu) reads batch-first inputs at their strides.
+// Layout: B1 (smooth.cu) and B3 (euler.cu) read batch-first inputs at
+// their strides; B1 writes its outputs batch-last ([..., B], element i
+// of env e at p[i * B + e]) and B2 (solver.cu) reads them so.
 //
-// Two ways to spread the work. One thread per environment (smooth.cu):
-// the 32 threads of a warp touch 32 neighbouring floats. One warp per
-// environment (solver.cu, euler.cu): the env's working set sits in
-// shared memory and the warp helpers at the end of this file spread a
-// factorization, a triangular solve or a sum over the 32 lanes, always
-// in a fixed order, so that two launches on the same inputs agree to
-// the bit.
+// All three kernels run one warp per environment: the env's working set
+// sits in shared memory and the warp helpers at the end of this file
+// spread a factorization, a triangular solve or a sum over the 32 lanes,
+// always in a fixed order, so that two launches on the same inputs agree
+// to the bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,34 +18,6 @@
 #include <stdint.h>
 
 namespace hm {
-
-struct In {
-  const float* p;
-  int B;
-  __device__ __forceinline__ float operator[](int i) const {
-    return __ldg(p + (size_t)i * B);
-  }
-};
-
-struct Out {
-  float* p;
-  int B;
-  __device__ __forceinline__ float& operator[](int i) const {
-    return p[(size_t)i * B];
-  }
-};
-
-// Carve consecutive batch-last regions out of one scratch buffer.
-struct Carver {
-  float* base;
-  int B;
-  size_t off;
-  __device__ __forceinline__ Out take(int n) {
-    Out o{base + off * B, B};
-    off += (size_t)n;
-    return o;
-  }
-};
 
 // max that keeps a NaN in its first argument (jnp.maximum semantics for
 // the clamp pattern max(x, eps)): a diverged state must stay NaN so the
@@ -122,28 +91,6 @@ __device__ __forceinline__ V3 ld3(const View& v, int i) {
 template <class View>
 __device__ __forceinline__ Q4 ld4(const View& v, int i) {
   return {v[i], v[i + 1], v[i + 2], v[i + 3]};
-}
-__device__ __forceinline__ void st3(const Out& v, int i, V3 a) {
-  v[i] = a.x;
-  v[i + 1] = a.y;
-  v[i + 2] = a.z;
-}
-__device__ __forceinline__ void st4(const Out& v, int i, Q4 a) {
-  v[i] = a.w;
-  v[i + 1] = a.x;
-  v[i + 2] = a.y;
-  v[i + 3] = a.z;
-}
-
-// shared (not per-env) parameters: plain arrays read by every thread
-__device__ __forceinline__ float pf(const float* p, int i) {
-  return __ldg(p + i);
-}
-__device__ __forceinline__ V3 pv3(const float* p, int i) {
-  return {__ldg(p + i), __ldg(p + i + 1), __ldg(p + i + 2)};
-}
-__device__ __forceinline__ Q4 pq4(const float* p, int i) {
-  return {__ldg(p + i), __ldg(p + i + 1), __ldg(p + i + 2), __ldg(p + i + 3)};
 }
 
 // MuJoCo solimp sigmoid (solver.impedance)

@@ -19,10 +19,13 @@ Output tuple, batch-leading:
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from . import engine
 from .collision import collide
+from .fused_solver import SMEM_MAX
 from .model import ActuatorType, JointType, Model
 from .solver import contact_raw, limit_rows_data
 
@@ -80,35 +83,108 @@ def smooth_raw_reference(m: Model, qpos, qvel, ctrl, xfrc=None):
 # kernel plumbing
 # ---------------------------------------------------------------------------
 
-_HEADER = 48       # int-table header; offsets from slot 16 (see smooth.cu)
+_HEADER = 48        # int-table header; array offsets from slot 16 (smooth.cu)
+ENVS_MAX = 8        # kernel B1: one warp per env, at most this many a block
 
 
-def _int_table(m: Model) -> torch.Tensor:
-    """The model structure as one int32 table for the kernel."""
-    s = m.struct
-    lim_jnt = [j for j in range(s.njnt) if s.jnt_limited[j]
-               and s.jnt_type[j] in (JointType.HINGE, JointType.SLIDE)]
-    jptr, jidx = [0], []
+def _limited_joints(s):
+    return [j for j in range(s.njnt) if s.jnt_limited[j]
+            and s.jnt_type[j] in (JointType.HINGE, JointType.SLIDE)]
+
+
+def tree_tables(s):
+    """Host tables of kernel B1 for a structure in the kernel family
+    (bodies in topological order): the bodies grouped by depth, a
+    level's bodies at lvl_body[lvl_ptr[L]:lvl_ptr[L + 1]] in ascending
+    order; each body's children at ch_idx[ch_ptr[b]:ch_ptr[b + 1]] in
+    ascending order (the order in which a parent sums them); the
+    structurally nonzero lower-triangle entries of M as (u, w) pairs,
+    u's body being w's or an ancestor of it; and each dof's actuators at
+    dof_aidx[dof_aptr[v]:dof_aptr[v + 1]] in ascending order. Plain
+    lists."""
+    depth = []
+    for b in range(s.nbody):
+        p = s.body_parent[b]
+        assert p < b, "the kernel needs bodies in topological order"
+        depth.append(0 if p < 0 else depth[p] + 1)
+    nlvl = max(depth) + 1 if depth else 0
+    lvl_body = [b for L in range(nlvl) for b in range(s.nbody)
+                if depth[b] == L]
+    lvl_ptr = [0]
+    for L in range(nlvl):
+        lvl_ptr.append(lvl_ptr[-1] + depth.count(L))
+    ch_ptr, ch_idx = [0], []
+    for b in range(s.nbody):
+        ch_idx.extend(c for c in range(s.nbody) if s.body_parent[c] == b)
+        ch_ptr.append(len(ch_idx))
+    body_dof = s.body_dof
+    mnz = []
+    for w in range(s.nv):
+        for u in range(w + 1):
+            if body_dof[s.dof_body[w], u]:
+                mnz.append((u, w))
+            elif body_dof[s.dof_body[u], w]:
+                mnz.append((w, u))
+    dof_aptr, dof_aidx = [0], []
+    for v in range(s.nv):
+        dof_aidx.extend(i for i in range(s.nu)
+                        if s.jnt_vadr[s.act_jnt[i]] == v)
+        dof_aptr.append(len(dof_aidx))
+    return dict(lvl_ptr=lvl_ptr, lvl_body=lvl_body, ch_ptr=ch_ptr,
+                ch_idx=ch_idx, mnz=mnz, dof_aptr=dof_aptr,
+                dof_aidx=dof_aidx)
+
+
+def _int_table(s, ncon: int) -> list:
+    """The model structure as one int32 table for the kernel: the header
+    (counts, then array offsets) and the arrays and records in the order
+    of smooth.cu, each array starting at a multiple of 4 ints."""
+    tt = tree_tables(s)
+    lvl_body, ch_ptr, ch_idx = tt["lvl_body"], tt["ch_ptr"], tt["ch_idx"]
+    jptr, jidx, bptr, bdof = [0], [], [0], []
     for b in range(s.nbody):
         jidx.extend(s.body_joints[b])
         jptr.append(len(jidx))
+        for j in s.body_joints[b]:
+            nvj = 6 if s.jnt_type[j] == JointType.FREE else 1
+            bdof.extend(range(s.jnt_vadr[j], s.jnt_vadr[j] + nvj))
+        bptr.append(len(bdof))
+    lvl_rec = []
+    for b in lvl_body:
+        lvl_rec += [b, s.body_parent[b], bptr[b], bptr[b + 1], ch_ptr[b],
+                    ch_ptr[b + 1], jptr[b], jptr[b + 1]]
+    jnt_rec = []
+    for j in range(s.njnt):
+        jnt_rec += [s.jnt_type[j], s.jnt_qadr[j], s.jnt_vadr[j],
+                    s.jnt_body[j]]
+    dof_rec = []
+    for v in range(s.nv):
+        j = s.dof_jnt[v]
+        dof_rec += [j, s.jnt_type[j], s.dof_body[v], v - s.jnt_vadr[j],
+                    s.jnt_qadr[j], tt["dof_aptr"][v], tt["dof_aptr"][v + 1],
+                    0]
+    act_rec = []
+    for i in range(s.nu):
+        j = s.act_jnt[i]
+        act_rec += [s.act_type[i], s.jnt_qadr[j], s.jnt_vadr[j], 0]
+    lim_rec = []
+    for j in _limited_joints(s):
+        lim_rec += [j, s.jnt_qadr[j]]
     dims = [s.nq, s.nv, s.nu, s.nbody, s.njnt, s.nsph, s.npair,
-            len(s.site_names), 2 * len(lim_jnt), s.nhrow, s.nhcol,
-            int(s.has_floor), m.ncon]
-    arrays = [s.body_parent, jptr, jidx, s.jnt_type, s.jnt_body,
-              s.jnt_qadr, s.jnt_vadr, s.dof_body,
-              s.body_dof.reshape(-1).tolist(), s.act_jnt, s.act_type,
-              s.sph_body,
+            len(s.site_names), 2 * len(_limited_joints(s)), s.nhrow,
+            s.nhcol, int(s.has_floor), ncon, len(tt["lvl_ptr"]) - 1,
+            len(tt["mnz"])]
+    arrays = [tt["lvl_ptr"], lvl_rec, bdof, ch_idx, jidx, jnt_rec, dof_rec,
+              tt["dof_aidx"], act_rec, s.sph_body,
               [int(f) for f in s.sph_floor], s.pair_a, s.pair_b,
-              s.site_body, lim_jnt]
+              s.site_body, lim_rec, [(u << 16) | w for u, w in tt["mnz"]]]
     header = dims + [0] * (16 - len(dims))
-    body, offs = [], []
+    body = []
     for arr in arrays:
-        offs.append(_HEADER + len(body))
+        header.append(_HEADER + len(body))
         body.extend(int(x) for x in arr)
-    header = header + offs
-    header += [0] * (_HEADER - len(header))
-    return torch.tensor(header + body, dtype=torch.int32, device=m.device)
+        body.extend([0] * (-len(body) % 4))
+    return header + [0] * (_HEADER - len(header)) + body
 
 
 def _pack_params(m: Model):
@@ -146,14 +222,142 @@ def _pack_params(m: Model):
                  (bodyp, jointp, dofp, qspr, actp, sphp, sitep, misc, hf))
 
 
-def scratch_floats(m: Model) -> int:
-    """Per-env scratch of the kernel (the Carver layout in smooth.cu)."""
+class SmoothDims(NamedTuple):
+    """What sizes a launch of kernel B1: the structure's counts, the
+    int table's length, the nine packs' sizes (floats) and their env
+    strides (0: shared by the batch)."""
+    nq: int
+    nv: int
+    nu: int
+    nbody: int
+    njnt: int
+    nsph: int
+    npair: int
+    nsite: int
+    nlim: int
+    K: int
+    ntab: int
+    psize: Tuple[int, ...]
+    pstride: Tuple[int, ...]
+
+
+def smooth_dims(m: Model) -> SmoothDims:
     s = m.struct
-    return 48 * s.nbody + 3 * s.njnt + 6 * s.nv + 3 * s.nsph
+    tab = m.static("smooth_tab", lambda: _int_table(s, m.ncon))
+    packs = m.static("smooth_packs", lambda: _pack_params(m))
+    return SmoothDims(s.nq, s.nv, s.nu, s.nbody, s.njnt, s.nsph, s.npair,
+                      len(s.site_names), 2 * len(_limited_joints(s)),
+                      m.ncon, len(tab), tuple(p.numel() for p in packs),
+                      (0,) * len(packs))
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def smooth_smem_bytes(d: SmoothDims, envs: int = 1) -> int:
+    """Dynamic shared memory of one block of kernel B1 with `envs` warps
+    (csrc/smooth.cu make_layout): the int table and the shared packs,
+    then per env its inputs (qpos, qvel, ctrl, the wrenches), its twelve
+    outputs staged (M, qfrc_smooth, cdof, rel, normal, friction, the
+    four slot rows, the four limit rows, the 13-float observables per
+    body, sites, anchor and COM velocity, actuator forces), the
+    intermediates (joint anchors; inertias, composite inertias, body
+    velocities and accelerations or forces per body; cdof_dot and the
+    CRB force per dof; sphere centres) and its per-env packs, the env
+    stride rounded up to 4 mod 32 floats; all float32 / int32."""
+    shared = sum(n for n, st in zip(d.psize, d.pstride) if st == 0)
+    per_env = sum(n for n, st in zip(d.psize, d.pstride) if st != 0)
+    blk = _round_up(_round_up(d.ntab, 4) + shared, 4)
+    env = (d.nq + d.nv + d.nu + 6 * d.nbody
+           + d.nv * d.nv + 7 * d.nv + 13 * d.K + 4 * d.nlim + 13 * d.nbody
+           + 3 * d.nsite + 6 + d.nu
+           + 3 * d.njnt + 32 * d.nbody + 12 * d.nv + 3 * d.nsph + per_env)
+    return 4 * (blk + envs * (_round_up(env + 28, 32) - 28))
+
+
+def smooth_block_shape(d: SmoothDims):
+    """(envs per block, shared bytes per block) of kernel B1, or a
+    ValueError when one env's working set does not fit a block."""
+    one = smooth_smem_bytes(d)
+    if one > SMEM_MAX:
+        raise ValueError(f"kernel B1 needs {one} bytes of shared memory for "
+                         f"one env (nv {d.nv}, {d.nbody} bodies, {d.K} "
+                         f"slots); a block has {SMEM_MAX}")
+    envs = ENVS_MAX
+    while smooth_smem_bytes(d, envs) > SMEM_MAX:
+        envs -= 1
+    return envs, smooth_smem_bytes(d, envs)
+
+
+def _smooth_meta(m: Model, d: SmoothDims, inputs) -> torch.Tensor:
+    """Kernel B1's host int32 array (smooth.cu hm_smooth): the int
+    table's header, the packs' sizes and env strides, the strides of
+    qpos, qvel, ctrl and xfrc (batch first), the table's length and
+    whether wrenches come."""
+    qpos, qvel, ctrl, xfrc = inputs
+    strides = (*qpos.stride(), *qvel.stride(), *ctrl.stride(),
+               *(xfrc.stride() if xfrc is not None else (0, 0, 0)))
+    if max(strides) >= 2 ** 31:
+        raise ValueError("kernel B1 takes input strides below 2**31")
+    tab = m.static("smooth_tab", lambda: _int_table(m.struct, m.ncon))
+    return m.static(("smooth_meta", d, strides, xfrc is not None),
+                    lambda: torch.tensor(
+                        tab[:_HEADER] + list(d.psize) + list(d.pstride)
+                        + list(strides) + [d.ntab, int(xfrc is not None)],
+                        dtype=torch.int32))
+
+
+def _smooth_launch_args(m: Model, qpos, qvel, ctrl, xfrc):
+    """Kernel B1's C arguments for checked inputs: (input and pack
+    tensors, the table; the twelve outputs batch-last in the order of the
+    C entry: M, qfrc_smooth, cdof, rel, nrm, mu3, the slot rows, the
+    limit rows, the body observables, sites, anchor and COM velocity,
+    actuator forces; the host meta array; (B, envs, smem)). The inputs
+    are read in place: no copies. Raises ValueError before any launch
+    when the model does not fit the kernel."""
+    d, envs, smem = m.static("smooth_shape", lambda: (
+        smooth_dims(m), *smooth_block_shape(smooth_dims(m))))
+    B = qpos.shape[0]
+    dev = qpos.device
+    tab = m.static("smooth_tab_dev", lambda: torch.tensor(
+        m.static("smooth_tab", lambda: _int_table(m.struct, m.ncon)),
+        dtype=torch.int32, device=dev))
+    packs = m.static("smooth_packs", lambda: _pack_params(m))
+    K, nv = d.K, d.nv
+    shapes = ((nv, nv), (nv,), (nv, 6), (3, K), (3, K), (3, K), (4, K),
+              (4, d.nlim), (d.nbody, 13), (d.nsite, 3), (6,), (d.nu,))
+    outs = tuple(torch.empty(sh + (B,), dtype=torch.float32, device=dev)
+                 for sh in shapes)
+    meta = _smooth_meta(m, d, (qpos, qvel, ctrl, xfrc))
+    return ((qpos, qvel, ctrl, xfrc) + packs + (tab,), outs, meta,
+            (B, envs, smem))
+
+
+def smooth_occupancy(m: Model):
+    """Kernel B1's occupancy on the current card at the block shape the
+    wrapper launches: envs per block, shared bytes per env and per
+    block, blocks per SM, registers and local (spill) bytes per thread."""
+    import ctypes
+    from .. import kernels
+    d = smooth_dims(m)
+    envs, smem = smooth_block_shape(d)
+    z = torch.zeros((1, 1))
+    meta = _smooth_meta(m, d, (z, z, z, None))
+    fn = kernels.load("smooth").hm_smooth_occupancy
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    err = fn(meta.data_ptr(), envs, smem, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"hm_smooth_occupancy failed: cudaError {err}")
+    return {"envs_per_block": envs,
+            "smem_per_env": smooth_smem_bytes(d, 1) - smooth_smem_bytes(d, 0),
+            "smem_per_block": smem, "blocks_per_sm": out[0],
+            "registers": out[1], "local_bytes": out[2]}
 
 
 def _check_kernel_inputs(m: Model, *tensors):
-    if not supported(m):
+    if not m.static("smooth_supported", lambda: supported(m)):
         raise NotImplementedError(
             "model outside the kernel family of the smooth kernel "
             "(capsules, boxes, tendons, ball joints, fluid, gravcomp and "
@@ -161,12 +365,13 @@ def _check_kernel_inputs(m: Model, *tensors):
     if m.struct.nhrow < 2 or m.struct.nhcol < 2:
         raise ValueError("the smooth kernel needs a heightfield of at "
                          "least 2 x 2 cells")
+    dev = m.body_pos.device
     for t in tensors:
         if t is None:
             continue
-        if t.device.type != "cuda":
-            raise ValueError("all kernel inputs must be on the same CUDA "
-                             "device")
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("all kernel inputs must be on the model's "
+                             "CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(f"the smooth kernel runs in float32, got "
                             f"{t.dtype}")
@@ -176,71 +381,41 @@ def smooth_raw(m: Model, qpos, qvel, ctrl, xfrc=None):
     """The smooth stage + raw contact/limit rows (see module docstring).
 
     qpos (B, nq), qvel (B, nv), ctrl (B, nu), xfrc (B, nbody, 6) or
-    None. CPU tensors take the twin; CUDA tensors launch kernel B1.
+    None, at any strides (on the card the kernel reads them in place).
+    CPU tensors take the twin; CUDA tensors launch kernel B1.
     """
     global LAUNCHES
     if qpos.device.type == "cpu":
         return smooth_raw_reference(m, qpos, qvel, ctrl, xfrc)
-    _check_kernel_inputs(m, qpos, qvel, ctrl, xfrc, m.body_pos)
+    _check_kernel_inputs(m, qpos, qvel, ctrl, xfrc)
     from .. import kernels
     s = m.struct
     B = qpos.shape[0]
-    nv, nu, nbody, K = s.nv, s.nu, s.nbody, m.ncon
-    for name, t, shape in (("qpos", qpos, (B, s.nq)), ("qvel", qvel, (B, nv)),
-                           ("ctrl", ctrl, (B, nu)),
-                           ("xfrc", xfrc, (B, nbody, 6))):
+    for name, t, shape in (("qpos", qpos, (B, s.nq)),
+                           ("qvel", qvel, (B, s.nv)),
+                           ("ctrl", ctrl, (B, s.nu)),
+                           ("xfrc", xfrc, (B, s.nbody, 6))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
                              f"kernel needs {shape}")
-    nsite = len(s.site_names)
-    nlim = 2 * sum(1 for j in range(s.njnt) if s.jnt_limited[j]
-                   and s.jnt_type[j] in (JointType.HINGE, JointType.SLIDE))
-    dev = qpos.device
-    tab = m.static("smooth_tab", lambda: _int_table(m))
-    packs = m.static("smooth_packs", lambda: _pack_params(m))
-
-    def lanes(x):
-        """(B, ...) -> (..., B) contiguous, batch-last."""
-        return x.reshape(B, -1).t().contiguous()
-
-    qpos_t, qvel_t = lanes(qpos), lanes(qvel)
-    ctrl_t = lanes(ctrl) if nu else torch.zeros((1, B), device=dev)
-    xfrc_t = lanes(xfrc) if xfrc is not None else None
-
-    def out(*shape):
-        return torch.empty(shape + (B,), dtype=torch.float32, device=dev)
-
-    M, qfs, cdof = out(nv, nv), out(nv), out(nv, 6)
-    rel, nrm, mu3, ckbd = out(3, K), out(3, K), out(3, K), out(4, K)
-    limd = out(4, nlim) if nlim else torch.zeros((4, 1, B), device=dev)
-    ipack, sitex = out(nbody, 13), out(max(nsite, 1), 3)
-    vec6, actf = out(6), out(max(nu, 1))
-    scratch = out(scratch_floats(m))
+    ins, outs, meta, ints = _smooth_launch_args(m, qpos, qvel, ctrl, xfrc)
 
     def ptr(t):
-        return None if t is None else t.data_ptr()
+        return None if t is None or t.numel() == 0 else t.data_ptr()
 
-    kernels.launch(
-        "smooth", ptr(qpos_t), ptr(qvel_t), ptr(ctrl_t), ptr(xfrc_t),
-        int(xfrc_t is not None), *(ptr(p) for p in packs), ptr(tab),
-        ptr(M), ptr(qfs), ptr(cdof), ptr(rel), ptr(nrm), ptr(mu3),
-        ptr(ckbd), ptr(limd), ptr(ipack), ptr(sitex), ptr(vec6), ptr(actf),
-        ptr(scratch), B)
+    kernels.launch("smooth", *(ptr(t) for t in ins + outs), meta.data_ptr(),
+                   *ints)
     LAUNCHES += 1
 
     def back(x):
         """(..., B) -> (B, ...) view."""
         return x.permute((x.ndim - 1,) + tuple(range(x.ndim - 1)))
 
-    ipack_b = back(ipack)
-    return (back(M), back(qfs), back(cdof),
-            rel.permute(2, 1, 0), nrm.permute(2, 1, 0), back(ckbd[0]),
-            mu3.permute(2, 1, 0), back(ckbd[1]), back(ckbd[2]),
-            back(ckbd[3]),
-            back(limd[0, :nlim]), back(limd[1, :nlim]),
-            back(limd[2, :nlim]), back(limd[3, :nlim]),
-            ipack_b[..., 0:3], ipack_b[..., 3:7], ipack_b[..., 7:10],
-            ipack_b[..., 10:13],
-            back(sitex) if nsite else torch.zeros((B, 0, 3), device=dev),
-            back(vec6[0:3]), back(vec6[3:6]),
-            back(actf) if nu else torch.zeros((B, 0), device=dev))
+    M, qfs, cdof, rel, nrm, mu3, ckbd, limd, ipack, sitex, vec6, actf = outs
+    ip = back(ipack)
+    return (back(M), back(qfs), back(cdof), rel.permute(2, 1, 0),
+            nrm.permute(2, 1, 0), back(ckbd[0]), mu3.permute(2, 1, 0),
+            back(ckbd[1]), back(ckbd[2]), back(ckbd[3]),
+            *(back(limd[i]) for i in range(4)),
+            ip[..., 0:3], ip[..., 3:7], ip[..., 7:10], ip[..., 10:13],
+            back(sitex), back(vec6[0:3]), back(vec6[3:6]), back(actf))

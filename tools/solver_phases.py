@@ -1,20 +1,25 @@
-"""Where kernels B2 and B3 spend their time, phase by phase, on the GPU.
+"""Where kernels B1, B2 and B3 spend their time, phase by phase, on the GPU.
 
-Builds an instrumented copy of humanoid_mujoco_torch/csrc/solver.cu (B2)
-and of csrc/euler.cu (B3) into build/solver_phases/ (the shipped kernels
-are not touched): before each phase marker below, the warp reads
-clock64() and adds the cycles since the previous marker to that phase's
-counter in registers; after the last marker lane 0 writes the counters
-to a per-env slot in global memory. It runs B2 once on the stand
-rollout's states (chip_smoke.headline, 50 steps in) and once on
-chip_smoke's random stand states, and B3 on the Swimmer's rows (chip_smoke.swimmer_states) and on
-the humanoid's 694 selection-free rows (rows_from_raw of chip_smoke's
-stand states), at B = 1024, and prints per phase the mean cycles per env
-and its share. The Newton phases are summed over the iterations; the
-residual pass also carries the previous iteration's step update. The
-markers add a __syncwarp, a clock read and an add each, so an
-instrumented kernel runs a little slower than the shipped one (its time
-is printed beside).
+Builds an instrumented copy of humanoid_mujoco_torch/csrc/smooth.cu (B1),
+csrc/solver.cu (B2) and csrc/euler.cu (B3) into build/solver_phases/
+(the shipped kernels are not touched): before each phase marker below,
+the warp reads clock64() and adds the cycles since the previous marker
+to that phase's counter in registers; after the last marker lane 0
+writes the counters to a per-env slot in global memory. It runs B1 on
+chip_smoke's random stand states (chip_smoke.states), B2 once on the
+stand rollout's states (chip_smoke.headline, 50 steps in) and once on
+chip_smoke's stand states, and B3 on the Swimmer's rows
+(chip_smoke.swimmer_states) and on the humanoid's 694 selection-free
+rows (rows_from_raw of chip_smoke's stand states), at B = 1024, and
+prints per phase the mean cycles per env and its share. B1's phases are
+the stages of its program: staging, limit rows and actuators, the
+kinematics, cdof and inertias, composite inertias and M, the velocity
+and acceleration passes, the forces up the tree and qfrc_smooth,
+collision, observables, and the block's barrier and output write. B2's
+and B3's Newton phases are summed over the iterations; the residual pass
+also carries the previous iteration's step update. The markers add a
+__syncwarp, a clock read and an add each, so an instrumented kernel runs
+a little slower than the shipped one (its time is printed beside).
 
     python tools/solver_phases.py [--batch 1024]
 
@@ -70,7 +75,23 @@ B3_MARKS = (
     ("  // ---- implicit-damping Euler", "final forces"),
     ("  const float h = __ldg(a.dt);", "Euler"),
 )
-MARKS = {"solver": B2_MARKS, "euler": B3_MARKS}
+B1_MARKS = (
+    ("    // ---- limit rows and actuator forces",
+     "stage table, packs, inputs"),
+    ("    // ---- forward kinematics and COMs", "limit rows, actuators"),
+    ("    // ---- cdof, spatial inertias", "kinematics, COMs, anchor"),
+    ("    // ---- composite inertias up the tree", "cdof, inertias"),
+    ("    // ---- body velocities, cdof_dot", "composite inertias, M"),
+    ("    // ---- body forces less the wrenches", "velocities, accelerations"),
+    ("    // ---- collision: sphere centres", "forces up the tree, qfrc"),
+    ("    // ---- observables:", "collision"),
+    ("  }\n  __syncthreads();\n\n  // ---- the staged outputs", "observables"),
+    ("}\n\n// ---- host side", "block barrier, output write"),
+)
+MARKS = {"smooth": B1_MARKS, "solver": B2_MARKS, "euler": B3_MARKS}
+# where the clock starts: after the line that names the warp's env
+START = {"smooth": "  const int e = e0 + wid;",
+         "solver": "  if (e >= B) return;", "euler": "  if (e >= B) return;"}
 PROBE = r'''
 __device__ unsigned long long g_phase[4096 * 16];
 #define PHASE(k) do { __syncwarp(); const long long t_ = clock64(); \
@@ -99,7 +120,7 @@ def instrumented_source(name: str) -> str:
             raise RuntimeError(f"phase marker not found once: {mark!r}")
         flush = "  PHASE_FLUSH();\n" if k == len(marks) - 1 else ""
         src = src.replace(mark, f"  PHASE({k});\n" + flush + mark)
-    start = "  if (e >= B) return;"
+    start = START[name]
     if src.count(start) != 1:
         raise RuntimeError("kernel entry marker not found")
     src = src.replace(start, start + "\n  long long t_last = clock64();\n"
@@ -135,8 +156,19 @@ def solve_inputs(m, qpos, qvel, ctrl):
             m.dt * m.dof_damping, m.dt)
 
 
+def b1_cases(B):
+    """B1's C arguments on the smoke's stand states."""
+    import chip_smoke
+    from humanoid_mujoco_torch.physics import fused_smooth, humanoid
+    m = humanoid.build_humanoid(device="cuda")
+    qpos, qvel, ctrl = chip_smoke.states(m, B)
+    ins, outs, meta, ints = fused_smooth._smooth_launch_args(
+        m, qpos, qvel, ctrl, None)
+    return {"smoke": (list(ins + outs) + [meta], list(ints))}
+
+
 def b2_cases(B):
-    """B2's launch arguments on the rollout's and the smoke's states."""
+    """B2's C arguments on the rollout's and the smoke's states."""
     import chip_smoke
     from humanoid_mujoco_torch.physics import fused_solver, humanoid
     from humanoid_mujoco_torch.physics.solver import limit_rows_static
@@ -147,13 +179,18 @@ def b2_cases(B):
     cases = {"rollout": solve_inputs(m, end.qpos, end.qvel,
                                      torch.zeros(B, m.nu, device="cuda")),
              "smoke": solve_inputs(m, *chip_smoke.states(m, B))}
-    return {label: fused_solver._solver_launch_args(*args, lim_tab, 8, 16)
-            for label, args in cases.items()}
+    out = {}
+    for label, args in cases.items():
+        ins, ints, outs = fused_solver._solver_launch_args(*args, lim_tab, 8,
+                                                           16)
+        out[label] = (list(ins + outs), list(ints))
+    return out
 
 
 def b3_cases(B):
-    """B3's launch arguments on the Swimmer's rows and on the humanoid's
-    selection-free rows."""
+    """B3's C arguments on the Swimmer's rows and on the humanoid's
+    selection-free rows (its strides, a host int32 tensor, are the
+    pointer after the outputs)."""
     import chip_smoke
     from humanoid_mujoco_torch.physics import fused_solver, humanoid
     from humanoid_mujoco_torch.physics.solver import (limit_rows_static,
@@ -169,9 +206,12 @@ def b3_cases(B):
                          limit_rows_static(m), lpos, kl, bl, dl)
     hum = (M, qf, qv, rows.J.contiguous(), rows.pos, rows.k, rows.b,
            rows.d, hdamp, h)
-    return {label: fused_solver._euler_launch_args(*args, 8, 16)
-            for label, args in (("swimmer_rows", swim),
-                                ("humanoid_rows", hum))}
+    out = {}
+    for label, args in (("swimmer_rows", swim), ("humanoid_rows", hum)):
+        ins, (strides, *ints), outs = fused_solver._euler_launch_args(
+            *args, 8, 16)
+        out[label] = (list(ins + outs) + [strides], ints)
+    return out
 
 
 def main():
@@ -186,13 +226,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     stream = torch.cuda.current_stream().cuda_stream
-    for name in ("solver", "euler"):
+    for name, cases in (("smooth", b1_cases), ("solver", b2_cases),
+                        ("euler", b3_cases)):
         so, fn = build(name)
-        cases = b2_cases(B) if name == "solver" else b3_cases(B)
-        for label, (ins, ints, outs) in cases.items():
-            ptrs = [t.data_ptr() for t in ins + outs]
-            # B3's strides: a host int32 tensor, the pointer after outs
-            ints = [x.data_ptr() if torch.is_tensor(x) else x for x in ints]
+        for label, (tensors, ints) in cases(B).items():
+            ptrs = [None if t is None or t.numel() == 0 else t.data_ptr()
+                    for t in tensors]
             if fn(*ptrs, *ints, stream) or so.hm_phase_zero():  # warm-up
                 raise RuntimeError("instrumented launch failed")
             torch.cuda.synchronize()

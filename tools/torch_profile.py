@@ -1,10 +1,10 @@
 """Where one step of a port rollout spends its time, on the GPU.
 
 Runs a chip_smoke.py rollout for a few steps under torch.profiler and
-prints, per step: the wall time (CUDA events), the device time of each
-kernel name, the number of kernel launches, and the device idle share
-(1 - device busy / wall), which is the launch and host overhead of the
-eager loop. `--task` picks the rollout:
+prints, per step: the wall time (CUDA events), the device time and the
+launches of every kernel name, the number of kernel launches, and the
+device idle share (1 - device busy / wall), which is the launch and host
+overhead of the eager loop. `--task` picks the rollout:
 
 - "Humanoid Cap Stand" (default): `chip_smoke.headline`, the stand task
   under a zero-order spline (kernels B1 + B2);
@@ -89,7 +89,7 @@ def main():
         "kernel_launches_per_step": launches,
         "kernels": [{"name": k[:80], "launches_per_step": c / T,
                      "ms_per_step": us / 1e3 / T}
-                    for k, c, us in rows[:15]]}, indent=1))
+                    for k, c, us in rows]}, indent=1))
     if not rows:
         print("torch_profile: the profiler saw no device time")
 
