@@ -6,7 +6,7 @@ Run from the root of the repository:
 
 It builds the three CUDA kernels (csrc/smooth.cu, csrc/solver.cu and
 csrc/euler.cu, one nvcc each for sm_90a, started together) and drives
-the port's two paths:
+the port's three paths:
 
 - the humanoid (kernels B1 + B2): each kernel and the whole step against
   the plain PyTorch twins on the card (B = 1024, an odd B = 300, B1 there
@@ -22,15 +22,29 @@ the port's two paths:
   isolation of a NaN env and its refusal of nv > 64 and of a model too
   large for a block's shared memory; the whole step against the twin
   composition, three 1024-sample x 60-step plans and a 10 x 10 MPC loop
-  toward a target with the task's transition on.
+  toward a target with the task's transition on;
+- the RL slice (B1 with per-env parameter packs + B2): B1 on 4096 envs
+  reset at randomization factor 1 against its twin on the same patched
+  model, its bitwise repeat, a launch whose per-env leaves all equal the
+  base model's against the shared-pack launch (bit for bit), a NaN env
+  kept to itself, and B2 on those outputs against its twin
+  (`rl_smooth_per_env`); 4096 envs stepped 10 times at randomization
+  factor 0.5 (`rl_env`: env steps/s, B1 and B2 launches per env step,
+  all kernel launches and the idle share from torch.profiler, one env
+  step against the same step with the twins); `sac_train_step` at
+  SACConfig() (2 calls), `ppo_train_step` at PPOConfig() (1 call), and
+  rl.train's main for 2 iterations, resumed to 3 from its checkpoint,
+  against an uninterrupted 3-iteration run, to the bit (`rl_train`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B1's and
 B2's occupancy on the humanoid and B3's on the Swimmer's rows, the
 humanoid's rows and the nv-36 case (envs and shared bytes per block,
-shared bytes per env, blocks per SM, registers and spills). It prints a
-`kernels` JSON line (time, launch count, plain-twin time and roofline
-bound per kernel). The last
+shared bytes per env, blocks per SM, registers and spills), and B1's
+with per-env packs. It prints a `kernels` JSON line (time, launch
+count, plain-twin time and roofline bound per kernel; B1's and B2's
+rows also their RL launches, B1's its per-env time and bound at B =
+4096) and the script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -824,7 +838,7 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     timer = Timer(device)
     m = humanoid.build_humanoid(device=device)
     qpos, qvel, ctrl = states(m, B)
-    lim_tab = m.static("lim_tab", lambda: limit_rows_static(m))
+    lim_tab = m.struct_static("lim_tab", lambda: limit_rows_static(m))
     dmask = contact_dmask(m)
     h = m.dt
     hdamp = h * m.dof_damping
@@ -972,6 +986,449 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     return table, b3_rows
 
 
+# the RL slice: the domain-randomized env batch, SAC and PPO
+RL_BATCH, RL_STEPS, RL_RF = 4096, 10, 0.5
+RL_TRAIN_ENVS = 256
+
+
+class twins:
+    """Within the block, `step` runs kernels B1's and B2's plain twins on
+    the card (the wrappers' module attributes swapped for the twins), so
+    the same env step can be held against the kernels' on one device."""
+
+    def __enter__(self):
+        from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+        self.saved = fused_smooth.smooth_raw, fused_solver.solve_step_raw
+        fused_smooth.smooth_raw = fused_smooth.smooth_raw_reference
+        fused_solver.solve_step_raw = fused_solver.solve_step_raw_reference
+
+    def __exit__(self, *exc):
+        from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+        fused_smooth.smooth_raw, fused_solver.solve_step_raw = self.saved
+
+
+def rl_inputs(base, es, seed=11):
+    """B1's inputs on RL states: the reset's qpos, qvel 0.2 N, ctrl 0.3 N
+    (numpy seed) and one env-style push per env (a one-hot body row of
+    5-15 N horizontally)."""
+    B = es.batch
+    rng = np.random.default_rng(seed)
+    nb = base.struct.nbody
+    xfrc = np.zeros((B, nb, 6))
+    body = rng.integers(1, nb, B)
+    ang = rng.uniform(0.0, 2 * np.pi, B)
+    mag = rng.uniform(5.0, 15.0, B)
+    xfrc[np.arange(B), body, 0] = mag * np.cos(ang)
+    xfrc[np.arange(B), body, 1] = mag * np.sin(ang)
+
+    def t(x):
+        return torch.tensor(x, dtype=base.dtype, device=base.device)
+    return (es.phys.qpos, t(0.2 * rng.standard_normal((B, base.nv))),
+            t(0.3 * rng.standard_normal((B, base.nu))), t(xfrc))
+
+
+def device_ms(fn, reps, name):
+    """Device time per launch (ms) of the kernels whose name holds
+    `name`, from torch.profiler over `reps` calls of fn after one more;
+    None on the CPU."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(ev.count, ev.self_device_time_total)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and name in ev.key]
+    n = sum(c for c, _ in rows)
+    assert n >= reps, f"the profiler saw {n} launches of {name}"
+    return sum(t for _, t in rows) / 1e3 / n
+
+
+def per_env_err(outs, refs):
+    """(B,) the largest |out - ref| of each env over a tuple of outputs,
+    each over the largest |ref| of the batch."""
+    errs = [(o.double() - r.double()).abs().reshape(o.shape[0], -1)
+            .amax(dim=1) / r.double().abs().max() for o, r in zip(outs, refs)]
+    return torch.stack(errs).amax(dim=0)
+
+
+def to_float64(x):
+    """A copy of an env state or draws (dataclasses of tensors) with its
+    float tensors in float64."""
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: to_float64(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(to_float64(v) for v in x)
+    return x.double() if x.is_floating_point() else x
+
+
+def settle(base, es, gen, n=20):
+    """The batch after n env steps under zero actions."""
+    from humanoid_mujoco_torch.rl import env as E
+    act = torch.zeros((es.batch, base.nu), dtype=base.dtype,
+                      device=base.device)
+    for _ in range(n):
+        es = E.batch_step(E.EnvConfig(standup=True), base, es, act, gen)[0]
+    return es
+
+
+def b2_vs_twin(m, qpos, qvel, ctrl, xfrc):
+    """B2 against its twin on kernel B1's outputs: the max relative
+    error per output."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.solver import (contact_dmask,
+                                                      limit_rows_static)
+    ker = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
+    solve_in = (ker[0], ker[1], qvel, *ker[2:7], contact_dmask(m),
+                *ker[7:14], m.dt * m.dof_damping, m.dt)
+    lim_tab = limit_rows_static(m)
+    names = ("qacc", "qvel_new", "fslot", "qfrc_constraint")
+    return {n: rel_err(r, o, n) for n, r, o in zip(
+        names, fused_solver.solve_step_raw_reference(*solve_in,
+                                                     lim_tab=lim_tab),
+        fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab))}
+
+
+def rl_smooth_per_env(base, es, timer, device, gen):
+    """B1 with per-env packs against its twin on the same patched model,
+    its bitwise repeat, a launch with every per-env leaf equal to the
+    base model's against the shared-pack launch (bit for bit), a NaN env
+    kept to itself, and B2 on these B1 outputs against its twin. Returns
+    the phase's numbers and B1's per-env numbers for the kernel table."""
+    import dataclasses
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.solver import (contact_dmask,
+                                                      limit_rows_static)
+    m = es.patch.apply(base)
+    qpos, qvel, ctrl, xfrc = rl_inputs(base, es)
+    B = qpos.shape[0]
+    ker = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
+    ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl, xfrc)
+    errs = {n: rel_err(r, o, n)
+            for n, r, o in zip(fused_smooth.NAMES, ref, ker)}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= TOL, f"per-env B1 {worst}: {errs[worst]:.3e}"
+    out = {"batch": B, "max_rel_err": errs[worst], "worst": worst,
+           "tol": TOL, "errs": errs}
+    lim_tab = limit_rows_static(m)
+    if device != "cpu":
+        again = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
+        assert all(torch.equal(a, b) for a, b in zip(ker, again)), \
+            "per-env B1 differs between two launches"
+        same = dataclasses.replace(es.patch, **{
+            f.name: getattr(base, f.name).expand(
+                getattr(es.patch, f.name).shape).contiguous()
+            for f in dataclasses.fields(es.patch)})
+        k_env = fused_smooth.smooth_raw(same.apply(base), qpos, qvel, ctrl,
+                                        xfrc)
+        k_shared = fused_smooth.smooth_raw(base, qpos, qvel, ctrl, xfrc)
+        assert all(torch.equal(a, b) for a, b in zip(k_env, k_shared)), \
+            "per-env packs equal to the base differ from the shared packs"
+        env = 7
+        qv = qvel.clone()
+        qv[env, 3] = float("nan")
+        poisoned = fused_smooth.smooth_raw(m, qpos, qv, ctrl, xfrc)
+        rest = torch.arange(B, device=qv.device) != env
+        nonfinite = [n for n, p in zip(fused_smooth.NAMES, poisoned)
+                     if not bool(torch.isfinite(p[env]).all())]
+        assert "qfrc_smooth" in nonfinite, nonfinite
+        assert all(torch.equal(a[rest], b[rest])
+                   for a, b in zip(ker, poisoned)), \
+            "a NaN env changed another env's per-env B1 outputs"
+        out.update(bitwise_repeat=True, equal_leaves_bitwise_shared=True,
+                   nan_env=env, nonfinite_outputs=nonfinite,
+                   others_bitwise_equal=True)
+    # B2 on these outputs. At reset the humanoid lies in deep contact on
+    # a bumpy floor, and on a few envs per thousand the solve is so
+    # stiff that float32 rounding flips an edge's active set within the
+    # 8 Newton iterations: B2 and its twin in float32 then each miss the
+    # float64 solve, on different envs. So here B2 is held to the
+    # float64 twin on all but 0.5% of the envs (its float32 twin's count
+    # beside it), and to its float32 twin on every env of the same
+    # batch after 20 env steps (`settle`)
+    solve_in = (ker[0], ker[1], qvel, *ker[2:7], contact_dmask(m),
+                *ker[7:14], m.dt * m.dof_damping, m.dt)
+    k2 = fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
+    r2 = fused_solver.solve_step_raw_reference(*solve_in, lim_tab=lim_tab)
+    r64 = fused_solver.solve_step_raw_reference(
+        *[t.double() if torch.is_tensor(t) else t for t in solve_in],
+        lim_tab=lim_tab)
+    e_k, e_t = per_env_err(k2, r64), per_env_err(r2, r64)
+    out.update(
+        solver_envs_over_tol_vs_float64=int((e_k > TOL).sum()),
+        twin_envs_over_tol_vs_float64=int((e_t > TOL).sum()),
+        solver_envs_over_tol_vs_twin=int((per_env_err(k2, r2) > TOL).sum()),
+        solver_median_err_vs_float64=float(e_k.median()),
+        twin_median_err_vs_float64=float(e_t.median()),
+        penetrating_slots_mean=float(
+            (ker[5] < 0).sum(dim=1).double().mean()),
+        penetrating_slots_max=int((ker[5] < 0).sum(dim=1).max()))
+    assert out["solver_envs_over_tol_vs_float64"] <= B // 200, out
+    settled = settle(base, es, gen)
+    errs2 = b2_vs_twin(settled.patch.apply(base), settled.phys.qpos,
+                       settled.phys.qvel, ctrl, None)
+    out.update(solver_settled_max_rel_err=max(errs2.values()),
+               solver_settled_errs=errs2)
+    assert out["solver_settled_max_rel_err"] <= TOL, errs2
+    n1 = fused_smooth.LAUNCHES
+
+    def per_env():
+        return fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
+
+    def shared():
+        return fused_smooth.smooth_raw(base, qpos, qvel, ctrl, xfrc)
+    t_env, t_shared = timer(per_env, 20), timer(shared, 20)
+    k_env = device_ms(per_env, 20, "smooth_kernel")
+    k_shared = device_ms(shared, 20, "smooth_kernel")
+    t_twin = timer(lambda: fused_smooth.smooth_raw_reference(
+        m, qpos, qvel, ctrl, xfrc), 3)
+    fused_smooth.LAUNCHES = n1          # timing launches are not counted
+    packs = fused_smooth._pack_params(m)
+    nbytes, flops = smooth_cost(m, B, len(lim_tab), packs)
+    nbytes_shared, _ = smooth_cost(base, B, len(lim_tab),
+                                   fused_smooth._pack_params(base))
+    bound_ms, bound_by = bound(nbytes, flops)
+    out.update(kernel_ms=k_env, kernel_ms_shared_packs=k_shared,
+               wrapper_ms=t_env, wrapper_ms_shared_packs=t_shared,
+               plain_ms=t_twin, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, bytes_shared_packs=nbytes_shared)
+    row = {"per_env_batch": B, "per_env_ms": k_env,
+           "per_env_shared_packs_ms": k_shared,
+           "per_env_wrapper_ms": t_env, "per_env_plain_ms": t_twin,
+           "per_env_bound_ms": bound_ms, "per_env_bound_by": bound_by,
+           "per_env_bytes": nbytes,
+           "per_env_max_abs_err": max(
+               float((r - o).abs().max()) for n, r, o in
+               zip(fused_smooth.NAMES, ref, ker) if r.numel()
+               and n != "dist")}
+    return out, row
+
+
+def rl_env_phase(base, timer, device, gen, B, nsteps):
+    """The rl_env4096 cell: B envs (standup), reset at RL_RF, zero
+    actions, `nsteps` batch_steps. Launches of B1 and B2 per env step
+    from their counters, all kernel launches, device busy time and idle
+    share from torch.profiler; wall time from CUDA events, median of 3
+    after a warm-up; one env step with the kernels against the same step
+    (the same draws) with the twins."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.rl import env as E
+    cfg = E.EnvConfig(standup=True)
+    es0, _ = E.batch_reset(cfg, base, RL_RF, B, gen)
+    act = torch.zeros((B, base.nu), dtype=base.dtype, device=device)
+    diverged = []
+    step = E.step
+
+    def spy(*a, **kw):
+        out = step(*a, **kw)
+        diverged.append(out[1].diverged)
+        return out
+
+    def run():
+        es = es0
+        for _ in range(nsteps):
+            es, obs, r, term, trunc = E.batch_step(cfg, base, es, act, gen)
+        return es, obs, r
+
+    run()                                            # warm-up
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
+    E.step = spy
+    try:
+        es, obs, r = run()
+    finally:
+        E.step = step
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = {"smooth": fused_smooth.LAUNCHES,
+                "solver": fused_solver.LAUNCHES,
+                "euler": fused_solver.EULER_LAUNCHES}
+    n_div = int(torch.stack(diverged).sum())
+    assert n_div == 0, f"{n_div} env steps diverged"
+    assert bool(torch.isfinite(obs).all() & torch.isfinite(r).all())
+    ms = timer(run, 3) / nsteps
+    out = {"gpu_batch": B, "steps": nsteps, "rf": RL_RF, "ms_per_env_step": ms,
+           "env_steps_per_s": B / (ms * 1e-3), "launches": launches,
+           "smooth_per_env_step": launches["smooth"] / nsteps,
+           "solver_per_env_step": launches["solver"] / nsteps,
+           "diverged": n_div, "mean_reward_last": float(r.mean())}
+    if device != "cpu":
+        assert launches["smooth"] == launches["solver"] == nsteps, launches
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [(ev.key, ev.count, ev.self_device_time_total)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        busy = sum(x[2] for x in rows) / 1e3 / nsteps
+        rows.sort(key=lambda x: -x[2])
+        out.update(
+            cuda_launches_per_env_step=sum(x[1] for x in rows) / nsteps,
+            device_busy_ms_per_env_step=busy,
+            idle_share=1.0 - busy / ms if busy else None,
+            top_kernels=[{"name": k[:60], "per_step": c / nsteps,
+                          "ms_per_step": us / 1e3 / nsteps}
+                         for k, c, us in rows[:6]])
+        assert rows, "the profiler saw no device time"
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    # one env step, kernels against twins, on the same draws: from the
+    # reset, against the float64 twins on all but 0.5% of the envs (the
+    # float32 twins' count beside it; see rl_smooth_per_env), and after
+    # 20 steps (`settle`) against the float32 twins on every env
+    d = E.draw_step(base, B, gen)
+    k = E.env_step(cfg, base, es0, act, d)
+    with twins():
+        t = E.env_step(cfg, base, es0, act, d)
+        t64 = E.env_step(
+            cfg, E.rl_humanoid_model(dtype=torch.float64, device=device),
+            to_float64(es0), act.double(), to_float64(d))
+
+    def outs(r):
+        return (r[1], r[2], r[0].phys.qpos, r[0].phys.qvel)
+    e_k, e_t = per_env_err(outs(k), outs(t64)), per_env_err(outs(t), outs(t64))
+    out.update(step_envs_over_tol_vs_float64=int((e_k > TOL).sum()),
+               twin_step_envs_over_tol_vs_float64=int((e_t > TOL).sum()),
+               step_median_err_vs_float64=float(e_k.median()))
+    assert out["step_envs_over_tol_vs_float64"] <= B // 200, out
+    settled = settle(base, es0, gen)
+    d = E.draw_step(base, B, gen)
+    k = E.env_step(cfg, base, settled, act, d)
+    with twins():
+        t = E.env_step(cfg, base, settled, act, d)
+    errs = {n: rel_err(b, a) for n, a, b in
+            zip(("obs", "reward", "qpos", "qvel"), outs(k), outs(t))}
+    out["settled_step_vs_twin"] = errs
+    out["settled_step_vs_twin_max"] = max(errs.values())
+    assert out["settled_step_vs_twin_max"] <= TOL, errs
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    return out, launches
+
+
+def param_snapshot(*modules):
+    return [p.detach().clone() for mod in modules for p in mod.parameters()]
+
+
+def changed(before, modules):
+    after = param_snapshot(*modules)
+    return all(not torch.equal(a, b) for a, b in zip(before, after))
+
+
+def rl_train_phase(base, timer, device, gen, sac_kw=None, ppo_kw=None,
+                   train_envs=RL_TRAIN_ENVS):
+    """sac_train_step at SACConfig() (2 calls) and ppo_train_step at
+    PPOConfig() (1 call), each timed, losses finite and parameters
+    changed; then rl.train's main for 2 iterations into a directory under
+    build/, a resume from its checkpoint to 3, and an uninterrupted
+    3-iteration run: the resumed parameters must equal the uninterrupted
+    ones to the bit."""
+    import shutil
+    import tempfile
+    from humanoid_mujoco_torch.rl import env as E
+    from humanoid_mujoco_torch.rl import ppo, sac, train
+    cfg = E.EnvConfig(standup=True)
+    out = {}
+    scfg = sac.SACConfig(**(sac_kw or {}))
+    st = sac.sac_init(scfg, cfg, base, RL_RF, gen)
+    for i in range(2):
+        before = param_snapshot(st.pi, st.q)
+        holder = {}
+
+        def call():
+            holder["m"] = sac.sac_train_step(scfg, cfg, base, st)[1]
+        ms = timer(call, 1)
+        met = {k: float(v) for k, v in holder["m"].items()}
+        assert all(np.isfinite(v) for v in met.values()), met
+        assert changed(before, (st.pi, st.q)), "SAC left a parameter as it was"
+        out[f"sac_call{i}"] = {"ms": ms, **met}
+    out["sac"] = {"n_envs": scfg.n_envs, "batch_size": scfg.batch_size,
+                  "rounds": scfg.steps_per_update,
+                  "buffer_size": scfg.buffer_size,
+                  "ms_per_round": out["sac_call1"]["ms"]
+                  / scfg.steps_per_update}
+    pcfg = ppo.PPOConfig(**(ppo_kw or {}))
+    pst = ppo.ppo_init(pcfg, cfg, base, RL_RF, gen)
+    before = param_snapshot(pst.pi, pst.v)
+    holder = {}
+
+    def pcall():
+        holder["m"] = ppo.ppo_train_step(pcfg, cfg, base, pst)[1]
+    ms = timer(pcall, 1)
+    met = {k: float(v) for k, v in holder["m"].items()}
+    assert all(np.isfinite(v) for v in met.values()), met
+    assert changed(before, (pst.pi, pst.v)), "PPO left a parameter as it was"
+    out["ppo_call0"] = {"ms": ms, "n_envs": pcfg.n_envs,
+                        "rollout_len": pcfg.rollout_len, **met}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="rl_train_", dir=root)
+    try:
+        spi = 32 * train_envs
+        common = ["--algo", "sac", "--envs", str(train_envs),
+                  "--eval-every", "1", "--device", device, "--seed", "5"]
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        _, ckpt = train.main(common + ["--out", a, "--steps", str(2 * spi)])
+        resumed, _ = train.main(common + ["--out", a, "--steps",
+                                          str(3 * spi), "--ckpt", ckpt])
+        fresh, _ = train.main(common + ["--out", b, "--steps",
+                                        str(3 * spi)])
+        out["train_main_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("pi", "q", "q_target"):
+        ra, fa = (getattr(x, name).state_dict() for x in (resumed, fresh))
+        assert all(torch.equal(ra[k], fa[k]) for k in ra), \
+            f"resumed {name} differs from the uninterrupted run"
+    assert torch.equal(resumed.log_alpha, fresh.log_alpha)
+    out["resume_bitwise_equal"] = True
+    return out
+
+
+def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
+           sac_kw=None, ppo_kw=None, train_envs=RL_TRAIN_ENVS):
+    """The RL slice's phases (rl_smooth_per_env, rl_env, rl_train).
+    Returns the per-env numbers for B1's row and the RL launches of B1
+    and B2."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.rl import env as E
+    timer = Timer(device)
+    base = E.rl_humanoid_model(device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    es, _ = E.batch_reset(E.EnvConfig(standup=True), base, 1.0, B, gen)
+    phase, row = rl_smooth_per_env(base, es, timer, device, gen)
+    log("rl_smooth_per_env", gpu=gpu, **phase)
+    env_out, env_launches = rl_env_phase(base, timer, device, gen, B, nsteps)
+    log("rl_env", gpu=gpu, **env_out)
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
+    train_out = rl_train_phase(base, timer, device, gen, sac_kw, ppo_kw,
+                               train_envs)
+    train_launches = {"smooth": fused_smooth.LAUNCHES,
+                      "solver": fused_solver.LAUNCHES,
+                      "euler": fused_solver.EULER_LAUNCHES}
+    log("rl_train", gpu=gpu, launches=train_launches, **train_out)
+    if device != "cpu":
+        assert train_launches["smooth"] > 0 and train_launches["solver"] > 0
+        assert train_launches["euler"] == env_launches["euler"] == 0
+    row.update(launches_rl_env=env_launches["smooth"],
+               launches_rl_train=train_launches["smooth"])
+    return row, {"launches_rl_env": env_launches["solver"],
+                 "launches_rl_train": train_launches["solver"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1004,14 +1461,26 @@ def main():
     euler_occ = {f"nv{nv}_rows{ne}": fused_solver.euler_occupancy(nv, ne)
                  for nv, ne in ((sw.nv, len(limit_rows_static(sw))),
                                 (hm.nv, nlim + 10 * hm.ncon), (36, 360))}
+    from humanoid_mujoco_torch.rl import env as rl_env
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rl_base = rl_env.rl_humanoid_model(device="cuda")
+    es8, _ = rl_env.batch_reset(rl_env.EnvConfig(), rl_base, 1.0, 8, gen)
+    smooth_occ_env = fused_smooth.smooth_occupancy(es8.patch.apply(rl_base))
     log("environment", gpu=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
-        smooth_occupancy=smooth_occ, solver_occupancy=occupancy,
+        smooth_occupancy=smooth_occ,
+        smooth_occupancy_per_env_packs=smooth_occ_env,
+        solver_occupancy=occupancy,
         euler_occupancy=euler_occ,
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)
     table.append(run_swimmer("cuda", gpu=smi, humanoid_b3=b3_rows))
+    b1_rl, b2_rl = run_rl("cuda", gpu=smi)
+    table[0].update(b1_rl)
+    table[1].update(b2_rl)
+    log("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,12 @@ def hfield_height(m: Model, xy: torch.Tensor) -> torch.Tensor:
     iy = torch.arange(nr, dtype=xy.dtype, device=xy.device)
     wx = torch.clamp(1.0 - torch.abs(gx[..., None] - ix), min=0.0)
     wy = torch.clamp(1.0 - torch.abs(gy[..., None] - iy), min=0.0)
-    hrow = torch.einsum("...r,rc->...c", wy, m.hfield_data)
+    H = m.hfield_data
+    if m.per_env("hfield_data"):      # (B, nr, nc): one floor per env
+        H = H.reshape(H.shape[:1] + (1,) * (wy.ndim - 2) + H.shape[1:])
+        hrow = torch.einsum("...r,...rc->...c", wy, H)
+    else:
+        hrow = torch.einsum("...r,rc->...c", wy, H)
     return m.floor_z + torch.sum(hrow * wx, dim=-1)
 
 
@@ -91,7 +96,8 @@ def collide(m: Model, xpos: torch.Tensor, xmat: torch.Tensor) -> Contacts:
         if not all(s.sph_floor):
             gate = torch.as_tensor(s.sph_floor, device=xpos.device)
             dist = torch.where(gate, dist, torch.full_like(dist, 1e9))
-        fr = torch.maximum(m.sph_friction, m.floor_friction)
+        # floor friction: shared () or per env (B,)
+        fr = torch.maximum(m.sph_friction, m.floor_friction[..., None])
         tor = torch.maximum(m.sph_friction_tor, m.floor_friction_tor)
         roll = torch.maximum(m.sph_friction_roll, m.floor_friction_roll)
     else:

@@ -35,7 +35,7 @@ class Kin:
     anchor: torch.Tensor    # (B, 3) whole-model COM
     cdof: torch.Tensor      # (B, nv, 6) motion subspaces about the anchor
     cinert: torch.Tensor    # (B, nbody, 6, 6)
-    total_mass: torch.Tensor  # ()
+    total_mass: torch.Tensor  # () or (B,) with per-env masses
     site_xpos: torch.Tensor   # (B, nsite, 3)
 
 
@@ -93,9 +93,10 @@ def fwd_position(m: Model, qpos: torch.Tensor) -> Kin:
                else qpos.new_zeros((B, 0, 3)))
 
     xipos = xpos + torch.einsum("nbij,bj->nbi", xmat, m.body_ipos)
-    total_mass = torch.sum(m.body_mass)
-    anchor = torch.sum(m.body_mass[:, None] * xipos, dim=1) / torch.clamp(
-        total_mass, min=1e-12)
+    # body_mass is shared (nbody,) or per env (B, nbody)
+    total_mass = torch.sum(m.body_mass, dim=-1)
+    anchor = torch.sum(m.body_mass[..., None] * xipos, dim=1) / torch.clamp(
+        total_mass, min=1e-12)[..., None]
 
     cdof = _compute_cdof(m, xquat, xmat, xanchor, anchor)
 
@@ -168,8 +169,9 @@ def fwd_velocity(m: Model, kin: Kin, qvel: torch.Tensor) -> Vel:
                 else torch.zeros_like(kin.cdof))
 
     v_com_b = body_com_velocities(kin, Vel(cvel, cdof_dot, None))
-    com_vel = torch.sum(m.body_mass[:, None] * v_com_b, dim=1) / torch.clamp(
-        kin.total_mass, min=1e-12)
+    com_vel = torch.sum(m.body_mass[..., None] * v_com_b,
+                        dim=1) / torch.clamp(kin.total_mass,
+                                             min=1e-12)[..., None]
     return Vel(cvel=cvel, cdof_dot=cdof_dot, com_vel=com_vel)
 
 
@@ -185,7 +187,8 @@ def crb_mass_matrix(m: Model, kin: Kin) -> torch.Tensor:
     body_dof = m.body_dof_t(kin.cdof.dtype)
     W = body_dof[None, :, :, None] * kin.cdof[:, None, :, :]  # (B,nb,nv,6)
     M = torch.einsum("nbik,nbkl,nbjl->nij", W, kin.cinert, W)
-    return 0.5 * (M + M.transpose(-1, -2)) + torch.diag(m.dof_armature)
+    return 0.5 * (M + M.transpose(-1, -2)) + torch.diag_embed(
+        m.dof_armature)
 
 
 def rnea_bias(m: Model, kin: Kin, vel: Vel, qvel: torch.Tensor
@@ -212,10 +215,10 @@ def actuator_force(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
         if s.act_type[a] == ActuatorType.MOTOR:
             force = c[:, a]
         else:  # POSITION
-            force = (m.act_kp[a] * (c[:, a] - qpos[:, s.jnt_qadr[j]])
+            force = (m.act_kp[..., a] * (c[:, a] - qpos[:, s.jnt_qadr[j]])
                      - m.act_kv[a] * qvel[:, s.jnt_vadr[j]])
         forces.append(m.act_gear[a] * torch.clamp(
-            force, m.act_forcerange[a, 0], m.act_forcerange[a, 1]))
+            force, m.act_forcerange[..., a, 0], m.act_forcerange[..., a, 1]))
     if not forces:
         return qpos.new_zeros((qpos.shape[0], 0))
     return torch.stack(forces, dim=-1)
@@ -241,7 +244,7 @@ def passive_force(m: Model, qpos: torch.Tensor, qvel: torch.Tensor
     for j in range(s.njnt):
         t = s.jnt_type[j]
         qadr, vadr = s.jnt_qadr[j], s.jnt_vadr[j]
-        k = m.jnt_stiffness[j]
+        k = m.jnt_stiffness[..., j]
         if t in (JointType.HINGE, JointType.SLIDE):
             cols[vadr] = cols[vadr] - k * (qpos[:, qadr] - m.qpos_spring[qadr])
         elif t == JointType.FREE:
@@ -285,7 +288,7 @@ def fluid_force(m: Model, kin: Kin, vel: Vel) -> torch.Tensor:
     lv = torch.einsum("nbji,nbj->nbi", Ri, v_com)
     lw = torch.einsum("nbji,nbj->nbi", Ri, w_com)
 
-    mass = torch.clamp(m.body_mass, min=1e-12)[:, None]
+    mass = torch.clamp(m.body_mass, min=1e-12)[..., None]
     inertia = m.body_inertia
     isum = torch.sum(inertia, dim=-1, keepdim=True)
     d = torch.sqrt(torch.clamp(6.0 * (isum - 2.0 * inertia) / mass,
@@ -303,7 +306,7 @@ def fluid_force(m: Model, kin: Kin, vel: Vel) -> torch.Tensor:
         frc = frc - 0.5 * rho * dj * dk * torch.abs(lv) * lv
         trq = trq - rho * d * (dj ** 4 + dk ** 4) / 64.0 * torch.abs(lw) * lw
 
-    live = (m.body_mass > 1e-12).to(lv.dtype)[:, None]
+    live = (m.body_mass > 1e-12).to(lv.dtype)[..., None]
     frc_w = torch.einsum("nbij,nbj->nbi", Ri, frc) * live
     trq_w = torch.einsum("nbij,nbj->nbi", Ri, trq) * live
     return xfrc_to_qfrc(m, kin, torch.cat([frc_w, trq_w], dim=-1))

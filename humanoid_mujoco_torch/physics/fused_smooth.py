@@ -187,39 +187,56 @@ def _int_table(s, ncon: int) -> list:
     return header + [0] * (_HEADER - len(header)) + body
 
 
+# the model leaves of each of the kernel's nine packs, in pack order, and
+# the rows a pack is laid out in (a leaf's row holds its values for one
+# body, joint, dof, actuator, sphere or site; misc and hf are one row)
+_PACKS = (
+    (("body_pos", "body_quat", "body_ipos", "body_iquat", "body_inertia",
+      "body_mass"), "nbody"),
+    (("jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin"),
+     "njnt"),
+    (("dof_armature", "dof_damping"), "nv"),
+    (("qpos_spring",), None),
+    (("act_gear", "act_kp", "act_kv", "act_ctrlrange", "act_forcerange"),
+     "nu"),
+    (("sph_pos", "sph_radius", "sph_friction", "sph_friction_tor",
+      "sph_friction_roll"), "nsph"),
+    (("site_pos",), "nsite"),
+    (("gravity", "floor_z", "floor_friction", "floor_friction_tor",
+      "floor_friction_roll", "hfield_halfsize", "solref", "solimp",
+      "limit_solref", "limit_solimp", "dt"), None),
+    (("hfield_data",), None),
+)
+
+
 def _pack_params(m: Model):
     """Model float leaves as the kernel's nine f32 packs (the layout of
-    pallas_smooth._pack_params), shared across the batch."""
+    pallas_smooth._pack_params). A pack is shared by the batch, (n,),
+    unless one of its leaves is per env: then it is (B, n), contiguous,
+    the shared leaves repeated in every env's row (the TPU kernel's
+    `params_batched`)."""
     f = torch.float32
     s = m.struct
-
-    def col(x):
-        return x.to(f)[:, None]
-
-    bodyp = torch.cat([m.body_pos, m.body_quat, m.body_ipos, m.body_iquat,
-                       m.body_inertia, m.body_mass[:, None]], -1).to(f)
-    jointp = torch.cat([m.jnt_pos, m.jnt_axis, m.jnt_stiffness[:, None],
-                        m.jnt_range, m.jnt_margin[:, None]], -1).to(f)
-    dofp = torch.stack([m.dof_armature, m.dof_damping], -1).to(f)
-    qspr = m.qpos_spring.to(f)
-    actp = (torch.cat([col(m.act_gear), col(m.act_kp), col(m.act_kv),
-                       m.act_ctrlrange.to(f), m.act_forcerange.to(f)], -1)
-            if s.nu else torch.zeros((1, 7), dtype=f, device=m.device))
-    sphp = torch.cat([m.sph_pos.to(f), col(m.sph_radius),
-                      col(m.sph_friction), col(m.sph_friction_tor),
-                      col(m.sph_friction_roll)], -1)
-    sitep = (m.site_pos.to(f) if s.site_names
-             else torch.zeros((1, 3), dtype=f, device=m.device))
-    misc = torch.stack([
-        m.gravity[0], m.gravity[1], m.gravity[2],
-        m.floor_z, m.floor_friction, m.floor_friction_tor,
-        m.floor_friction_roll, m.hfield_halfsize[0], m.hfield_halfsize[1],
-        m.solref[0], m.solref[1], m.solimp[0], m.solimp[1], m.solimp[2],
-        m.limit_solref[0], m.limit_solref[1], m.limit_solimp[0],
-        m.limit_solimp[1], m.limit_solimp[2], m.dt]).to(f)
-    hf = m.hfield_data.to(f)
-    return tuple(p.contiguous() for p in
-                 (bodyp, jointp, dofp, qspr, actp, sphp, sitep, misc, hf))
+    B = m.env_batch
+    counts = dict(nbody=s.nbody, njnt=s.njnt, nv=s.nv, nu=s.nu,
+                  nsph=s.nsph, nsite=len(s.site_names))
+    packs = []
+    for names, rows in _PACKS:
+        n = counts[rows] if rows else 1
+        if n == 0:       # no actuators / sites: one zero row
+            packs.append(torch.zeros(7 if rows == "nu" else 3, dtype=f,
+                                     device=m.device))
+            continue
+        envs = B if any(m.per_env(k) for k in names) else None
+        lead = (envs,) if envs else ()
+        parts = []
+        for k in names:
+            x = getattr(m, k).to(f)
+            if envs and not m.per_env(k):
+                x = x.expand(lead + x.shape)
+            parts.append(x.reshape(lead + (n, -1)))
+        packs.append(torch.cat(parts, -1).reshape(lead + (-1,)))
+    return tuple(p.contiguous() for p in packs)
 
 
 class SmoothDims(NamedTuple):
@@ -241,14 +258,21 @@ class SmoothDims(NamedTuple):
     pstride: Tuple[int, ...]
 
 
+def _tab(m: Model) -> list:
+    """Kernel B1's int table, built once per structure."""
+    return m.struct_static("smooth_tab", lambda: _int_table(m.struct, m.ncon))
+
+
 def smooth_dims(m: Model) -> SmoothDims:
+    """The launch sizes; a per-env pack (B, n) has env stride n."""
     s = m.struct
-    tab = m.static("smooth_tab", lambda: _int_table(s, m.ncon))
     packs = m.static("smooth_packs", lambda: _pack_params(m))
     return SmoothDims(s.nq, s.nv, s.nu, s.nbody, s.njnt, s.nsph, s.npair,
                       len(s.site_names), 2 * len(_limited_joints(s)),
-                      m.ncon, len(tab), tuple(p.numel() for p in packs),
-                      (0,) * len(packs))
+                      m.ncon, len(_tab(m)),
+                      tuple(p.shape[-1] for p in packs),
+                      tuple(p.shape[-1] if p.ndim == 2 else 0
+                            for p in packs))
 
 
 def _round_up(x: int, k: int) -> int:
@@ -300,12 +324,12 @@ def _smooth_meta(m: Model, d: SmoothDims, inputs) -> torch.Tensor:
                *(xfrc.stride() if xfrc is not None else (0, 0, 0)))
     if max(strides) >= 2 ** 31:
         raise ValueError("kernel B1 takes input strides below 2**31")
-    tab = m.static("smooth_tab", lambda: _int_table(m.struct, m.ncon))
-    return m.static(("smooth_meta", d, strides, xfrc is not None),
-                    lambda: torch.tensor(
-                        tab[:_HEADER] + list(d.psize) + list(d.pstride)
-                        + list(strides) + [d.ntab, int(xfrc is not None)],
-                        dtype=torch.int32))
+    return m.struct_static(("smooth_meta", d, strides, xfrc is not None),
+                           lambda: torch.tensor(
+                               _tab(m)[:_HEADER] + list(d.psize)
+                               + list(d.pstride) + list(strides)
+                               + [d.ntab, int(xfrc is not None)],
+                               dtype=torch.int32))
 
 
 def _smooth_launch_args(m: Model, qpos, qvel, ctrl, xfrc):
@@ -316,14 +340,17 @@ def _smooth_launch_args(m: Model, qpos, qvel, ctrl, xfrc):
     actuator forces; the host meta array; (B, envs, smem)). The inputs
     are read in place: no copies. Raises ValueError before any launch
     when the model does not fit the kernel."""
-    d, envs, smem = m.static("smooth_shape", lambda: (
-        smooth_dims(m), *smooth_block_shape(smooth_dims(m))))
+    d = m.static("smooth_dims", lambda: smooth_dims(m))
+    envs, smem = m.struct_static(("smooth_shape", d),
+                                 lambda: smooth_block_shape(d))
     B = qpos.shape[0]
     dev = qpos.device
-    tab = m.static("smooth_tab_dev", lambda: torch.tensor(
-        m.static("smooth_tab", lambda: _int_table(m.struct, m.ncon)),
-        dtype=torch.int32, device=dev))
+    tab = m.struct_static(("smooth_tab", dev), lambda: torch.tensor(
+        _tab(m), dtype=torch.int32, device=dev))
     packs = m.static("smooth_packs", lambda: _pack_params(m))
+    if any(p.ndim == 2 and p.shape[0] != B for p in packs):
+        raise ValueError(f"the model's per-env parameters are for "
+                         f"{m.env_batch} envs, the inputs for {B}")
     K, nv = d.K, d.nv
     shapes = ((nv, nv), (nv,), (nv, 6), (3, K), (3, K), (3, K), (4, K),
               (4, d.nlim), (d.nbody, 13), (d.nsite, 3), (6,), (d.nu,))
@@ -357,7 +384,7 @@ def smooth_occupancy(m: Model):
 
 
 def _check_kernel_inputs(m: Model, *tensors):
-    if not m.static("smooth_supported", lambda: supported(m)):
+    if not m.struct_static("smooth_supported", lambda: supported(m)):
         raise NotImplementedError(
             "model outside the kernel family of the smooth kernel "
             "(capsules, boxes, tendons, ball joints, fluid, gravcomp and "

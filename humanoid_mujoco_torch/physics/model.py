@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import resolve_device
 
@@ -150,9 +151,42 @@ _LEAVES = (
 )
 
 
+# number of dimensions of each float leaf when it is shared by the batch;
+# a leaf with one more carries a leading env axis (B, ...): the per-env
+# parameters of a domain-randomized batch (rl/env.py ModelPatch)
+LEAF_NDIM = dict(
+    body_pos=2, body_quat=2, body_ipos=2, body_iquat=2, body_mass=1,
+    body_inertia=2, jnt_pos=2, jnt_axis=2, jnt_range=2, jnt_stiffness=1,
+    jnt_springref=1, jnt_margin=1, qpos_spring=1, dof_damping=1,
+    dof_armature=1, act_gear=1, act_gear6=2, act_kp=1, act_kv=1,
+    act_ctrlrange=2, act_forcerange=2, body_gravcomp=1, site_pos=2,
+    sph_pos=2, sph_radius=1, sph_friction=1, sph_friction_tor=1,
+    sph_friction_roll=1, floor_z=0, floor_friction=0, floor_friction_tor=0,
+    floor_friction_roll=0, hfield_data=2, hfield_halfsize=1, dt=0,
+    gravity=1, solref=1, solimp=1, limit_solref=1, limit_solimp=1,
+    cap_pos=2, cap_axis=2, cap_halflen=1, cap_radius=1, cap_friction=1,
+    cap_friction_tor=1, cap_friction_roll=1, box_pos=2, box_quat=2,
+    box_size=2, box_friction=1, box_friction_tor=1, box_friction_roll=1,
+    tendon_range=2)
+assert tuple(LEAF_NDIM) == _LEAVES
+
+# tables that depend only on a Structure (and the device or dtype named
+# in their key), shared by every Model built on that Structure object
+_STRUCT_CACHE = WeakIdKeyDictionary()
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """Float parameters (tensors on one device) + static structure."""
+    """Float parameters (tensors on one device) + static structure.
+
+    Every leaf is shared by the batch, except that a leaf may carry a
+    leading env axis (B, ...) (`LEAF_NDIM`): the domain-randomized
+    parameters of an RL batch. The kernel wrappers cache what they
+    derive from the leaves (B1's parameter packs) in `cache`, per model:
+    derive a new model with `replace` (or `dataclasses.replace`, which
+    also starts an empty cache) and never edit a leaf in place once a
+    kernel has seen the model, or the kernel runs the stale packs.
+    """
 
     struct: Structure
     body_pos: torch.Tensor       # (nbody, 3) frame offset in parent frame
@@ -210,13 +244,13 @@ class Model:
     box_friction_roll: torch.Tensor
     tendon_range: torch.Tensor
     sol_iter: torch.Tensor       # () int32
-    # per-model derived data (kernel tables, parameter packs), built on
-    # first use by the kernel wrappers; `replace` starts a fresh one
+    # per-model derived data (parameter packs), built on first use by
+    # the kernel wrappers; not an __init__ argument, so every `replace`
+    # and every dataclasses.replace starts an empty one
     cache: Dict[str, object] = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
+        default_factory=dict, init=False, repr=False, compare=False)
 
     def replace(self, **kw) -> "Model":
-        kw.setdefault("cache", {})
         return dataclasses.replace(self, **kw)
 
     @property
@@ -246,17 +280,42 @@ class Model:
                 + len(s.pair_cc) + len(s.pair_sb) + len(s.pair_cb)
                 + 16 * len(s.pair_bb))
 
+    @property
+    def env_batch(self) -> Optional[int]:
+        """The env axis of the per-env leaves, or None when every leaf is
+        shared."""
+        return self.static("env_batch", lambda: next(
+            (getattr(self, k).shape[0] for k, n in LEAF_NDIM.items()
+             if getattr(self, k).ndim > n), None))
+
+    def per_env(self, name: str) -> bool:
+        """Whether leaf `name` carries the leading env axis."""
+        return getattr(self, name).ndim > LEAF_NDIM[name]
+
     def static(self, key, build):
-        """`build()` once per model and key (static tables, packs)."""
-        v = self.cache.get(key)
-        if v is None:
-            v = self.cache[key] = build()
-        return v
+        """`build()` once per model and key (what depends on the leaves:
+        the kernels' parameter packs)."""
+        if key not in self.cache:
+            self.cache[key] = build()
+        return self.cache[key]
+
+    def struct_static(self, key, build):
+        """`build()` once per Structure object and key (what depends only
+        on the structure: kernel tables, masks; name the device or dtype
+        in `key` when the value is a tensor). Shared by every model on
+        the structure, such as the patched model of each RL env step."""
+        c = _STRUCT_CACHE.get(self.struct)
+        if c is None:
+            c = _STRUCT_CACHE[self.struct] = {}
+        if key not in c:
+            c[key] = build()
+        return c[key]
 
     def body_dof_t(self, dtype: torch.dtype) -> torch.Tensor:
         """Structure.body_dof (nbody, nv) as a float tensor."""
-        return self.static(("body_dof", dtype), lambda: torch.tensor(
-            self.struct.body_dof, dtype=dtype, device=self.device))
+        return self.struct_static(
+            ("body_dof", dtype, self.device), lambda: torch.tensor(
+                self.struct.body_dof, dtype=dtype, device=self.device))
 
 
 def model_from_jax_leaves(struct: Structure,

@@ -94,8 +94,9 @@ def limit_rows_data(m: Model, qpos: torch.Tensor):
     pos = []
     for j in _limited_joints(m):
         qadr = s.jnt_qadr[j]
-        lo, hi = m.jnt_range[j, 0], m.jnt_range[j, 1]
-        mg = m.jnt_margin[j]
+        # shared (njnt, 2) or per env (B, njnt, 2)
+        lo, hi = m.jnt_range[..., j, 0], m.jnt_range[..., j, 1]
+        mg = m.jnt_margin[..., j]
         pos.append(qpos[:, qadr] - lo - mg)
         pos.append(hi - mg - qpos[:, qadr])
     if not pos:
@@ -116,10 +117,11 @@ def make_rows(m: Model, qpos: torch.Tensor) -> Rows:
         raise NotImplementedError(
             "contact pyramid rows and top-k contact selection outside "
             "the kernel family come with slice 4 of the port")
-    lim_tab = m.static("lim_tab", lambda: limit_rows_static(m))
-    J = m.static(("lim_J", qpos.dtype), lambda: torch.tensor(
-        lim_tab, dtype=qpos.dtype, device=qpos.device).reshape(
-            len(lim_tab), m.nv))
+    lim_tab = m.struct_static("lim_tab", lambda: limit_rows_static(m))
+    J = m.struct_static(
+        ("lim_J", qpos.dtype, qpos.device), lambda: torch.tensor(
+            lim_tab, dtype=qpos.dtype, device=qpos.device).reshape(
+                len(lim_tab), m.nv))
     pos, k, b, d = limit_rows_data(m, qpos)
     return Rows(J=J.expand(qpos.shape[0], -1, -1), pos=pos, k=k, b=b, d=d)
 
@@ -137,7 +139,7 @@ def contact_dmask(m: Model) -> torch.Tensor:
             - (body_dof[a] if a >= 0 else zero)
             for a, b in zip(s.slot_body_a, s.slot_body_b)])
         return torch.as_tensor(tab, dtype=m.dtype, device=m.device)
-    return m.static("contact_dmask", build)
+    return m.struct_static(("contact_dmask", m.dtype, m.device), build)
 
 
 def contact_raw(m: Model, kin: Kin, contacts: Contacts):

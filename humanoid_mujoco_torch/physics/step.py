@@ -91,7 +91,8 @@ def _check(m: Model, qpos: torch.Tensor, ift: bool) -> bool:
     if qpos.dtype != m.dtype or qpos.device != m.device:
         raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
                          f"match the model ({m.dtype}, {m.device})")
-    if fused_smooth.supported(m):
+    if m.struct_static("smooth_supported",
+                       lambda: fused_smooth.supported(m)):
         return True
     s = m.struct
     if m.ncon or s.ntendon or s.has_gravcomp or any(
@@ -100,7 +101,7 @@ def _check(m: Model, qpos: torch.Tensor, ift: bool) -> bool:
             "this model is outside the kernel family (capsules, boxes, "
             "tendons, gravcomp, site actuators); its step comes with "
             "slice 4 of the port")
-    if not m.static("lim_tab", lambda: limit_rows_static(m)):
+    if not m.struct_static("lim_tab", lambda: limit_rows_static(m)):
         raise NotImplementedError(
             "a model without contact slots or constraint rows (Acrobot, "
             "Particle) takes the solver-free step of slice 4 of the port")
@@ -119,7 +120,7 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
         (M, qfrc_smooth, cdof, rel, nrm, dist, mu3, kc, bc, dc,
          lpos, kl, bl, dl, xpos, xquat, xipos, bcv, sitex, anchor,
          com_vel, actf) = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
-        lim_tab = m.static("lim_tab", lambda: limit_rows_static(m))
+        lim_tab = m.struct_static("lim_tab", lambda: limit_rows_static(m))
         qacc, qvel_new, cf, qfrc_constraint = fused_solver.solve_step_raw(
             M, qfrc_smooth, qvel, cdof, rel, nrm, dist, mu3,
             contact_dmask(m), kc, bc, dc, lpos, kl, bl, dl,

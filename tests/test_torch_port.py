@@ -3,8 +3,9 @@
 The checks live in the other tests/test_torch_*.py modules: math and
 ops, the model, the twins of the three CUDA kernels, the step, rollouts
 and the sampling planner, the Swimmer's constraint stage, step, rollout,
-transition and MPC loop, each against the JAX package on the same
-numpy-seeded inputs, and the port's import isolation. This test runs
+transition and MPC loop, the RL env (per-env parameters), SAC and PPO,
+each against the JAX package on the same numpy-seeded inputs, and the
+port's import isolation. This test runs
 them all. The kernels themselves are checked on the card by
 chip_smoke.py.
 
@@ -19,10 +20,15 @@ MPC loop, about 100 s; the jitted sampling plan, about 40 s; kernel B3's
 program in interpret mode, about 30 s; the eager kernel-path step, about
 22 s) are built in four more threads while the other checks run: XLA
 compiles outside the GIL, and JAX keeps `disable_jit` per thread. All
-are cached, so the checks that read them reuse the result.
+are cached, so the checks that read them reuse the result. The RL
+slice's three (the env's reset and steps with B1's per-env reference,
+one SAC and one PPO train step) are built in three processes: each is a
+jit trace of the humanoid step, Python that holds the GIL, so threads
+would run them one after another.
 """
 
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import torch
 
@@ -31,6 +37,7 @@ import test_torch_fused_smooth
 import test_torch_import
 import test_torch_math
 import test_torch_model
+import test_torch_rl
 import test_torch_rollout
 import test_torch_step
 import test_torch_swimmer
@@ -39,7 +46,12 @@ torch.set_num_threads(1)
 
 
 def test_port_matches_jax():
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    names = ("env", "sac", "ppo")
+    with ProcessPoolExecutor(
+            max_workers=len(names),
+            mp_context=multiprocessing.get_context("spawn")) as procs, \
+            ThreadPoolExecutor(max_workers=4) as pool:
+        rl = [procs.submit(test_torch_rl.reference, n) for n in names]
         swimmer = pool.submit(test_torch_swimmer.jax_swimmer)
         plan = pool.submit(test_torch_rollout.jax_plan)
         b3 = pool.submit(test_torch_constraints.jax_b3_interpret)
@@ -47,11 +59,14 @@ def test_port_matches_jax():
         for module in (test_torch_math, test_torch_model, test_torch_import,
                        test_torch_fused_smooth):
             module.run_checks()
+        test_torch_rl.run_local_checks()
         composition.result()
         test_torch_step.run_checks()
         b3.result()
         test_torch_constraints.run_checks()
         plan.result()
         test_torch_rollout.run_checks()
+        test_torch_rl.run_reference_checks(
+            {n: f.result() for n, f in zip(names, rl)})
         swimmer.result()
     test_torch_swimmer.run_checks()
