@@ -34,7 +34,29 @@ the port's three paths:
   step against the same step with the twins); `sac_train_step` at
   SACConfig() (2 calls), `ppo_train_step` at PPOConfig() (1 call), and
   rl.train's main for 2 iterations, resumed to 3 from its checkpoint,
-  against an uninterrupted 3-iteration run, to the bit (`rl_train`).
+  against an uninterrupted 3-iteration run, to the bit (`rl_train`);
+- the serving slice (B1 + B2 under the Agent): for each of the
+  sampling, MPPI and CEM planners, an Agent at its defaults (64
+  samples, horizon 17, plan dt 0.02) behind MPCServer (2 planner
+  iterations) on 127.0.0.1, a client thread's 20 JSON requests (noisy
+  stand-pose observations) and a malformed one: every reply 12 finite
+  floats, the malformed one an error, position mode joint_pos + 0.3
+  torque; median and p90 latency, control rate, B1 and B2 launches per
+  request, device busy and idle share of one request (torch.profiler);
+  one plan's 64 candidates through the kernels against the float64
+  twins, every (candidate, step) pair in lockstep and the returns of
+  the well-conditioned ones (`serving_candidates`); the root-height
+  search's time and its float32 pick against the float64 twin's on
+  every observation (`serving`); 0.2 s of MPC in the randomized env
+  (`mpc_in_env`); the deterministic policy of rl_train's checkpoint on
+  16 episodes x 100 steps at randomization factors 0 and 1
+  (`evaluate`); the env steps of these two paths (B1 with per-env
+  packs and B2, at batch 1 and 16) recorded as they ran and held
+  against the same steps through the float64 twins; an Agent on the
+  Swimmer by registry id, one plan and one step through B3, each of
+  its B3 launches (batch 64 and 1) held against B3's twin on the same
+  inputs (`swimmer_agent`); the host wall time of each serving phase
+  (`serving_walls`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B1's and
@@ -43,8 +65,9 @@ humanoid's rows and the nv-36 case (envs and shared bytes per block,
 shared bytes per env, blocks per SM, registers and spills), and B1's
 with per-env packs. It prints a `kernels` JSON line (time, launch
 count, plain-twin time and roofline bound per kernel; B1's and B2's
-rows also their RL launches, B1's its per-env time and bound at B =
-4096) and the script's total seconds. The last
+rows also their RL and serving launches, B1's its per-env time and
+bound at B = 4096; B3's row its Swimmer-agent launches) and the
+script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -100,6 +123,20 @@ class Timer:
                 fn()
                 times.append(1e3 * (time.perf_counter() - t0))
         return float(np.median(times))
+
+
+def counters_zero():
+    """Set the launch counters of B1, B2 and B3 to 0."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    fused_solver.EULER_LAUNCHES = 0
+
+
+def counters():
+    """The launch counters of B1 (smooth), B2 (solver) and B3 (euler)."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    return {"smooth": fused_smooth.LAUNCHES, "solver": fused_solver.LAUNCHES,
+            "euler": fused_solver.EULER_LAUNCHES}
 
 
 def rel_err(ref: torch.Tensor, out: torch.Tensor, name: str = ""):
@@ -652,7 +689,7 @@ def run_swimmer(device="cuda", B=BENCH_BATCH, nsample=PLAN_SAMPLES,
     the MPC loop. Returns B3's row of the kernel table."""
     from humanoid_mujoco_torch import mpc
     from humanoid_mujoco_torch.ops.spline import SplineOrder
-    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics import fused_solver
     from humanoid_mujoco_torch.physics.model import make_state
     from humanoid_mujoco_torch.physics.step import integrate_pos, step
     from humanoid_mujoco_torch.planners import (SamplingConfig,
@@ -700,8 +737,7 @@ def run_swimmer(device="cuda", B=BENCH_BATCH, nsample=PLAN_SAMPLES,
     gen.manual_seed(0)
     s0 = make_state(m)
     pol = init_policy(m, SWIM_KNOTS)
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
-    fused_solver.EULER_LAUNCHES = 0
+    counters_zero()
     for i in range(PLAN_CALLS):
         holder = {}
 
@@ -715,9 +751,7 @@ def run_swimmer(device="cuda", B=BENCH_BATCH, nsample=PLAN_SAMPLES,
             horizon=plan_horizon, latency_ms=lat, best=best,
             nominal=nominal, winner=int(info.winner))
         assert best <= nominal, (best, nominal)
-    plan_launches = {"smooth": fused_smooth.LAUNCHES,
-                     "solver": fused_solver.LAUNCHES,
-                     "euler": fused_solver.EULER_LAUNCHES}
+    plan_launches = counters()
     log("swimmer_plan_launches", **plan_launches)
     if device != "cpu":
         assert plan_launches == {"smooth": 0, "solver": 0,
@@ -735,12 +769,9 @@ def run_swimmer(device="cuda", B=BENCH_BATCH, nsample=PLAN_SAMPLES,
             m, pm, task, plan_fn, init_policy(m, SWIM_KNOTS), s_mpc, gen,
             ncycle, sim_steps, mpc.spline_action_fn(SplineOrder.LINEAR),
             run_transition=True)
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
-    fused_solver.EULER_LAUNCHES = 0
+    counters_zero()
     loop_ms = timer(loop, 1)
-    mpc_launches = {"smooth": fused_smooth.LAUNCHES,
-                    "solver": fused_solver.LAUNCHES,
-                    "euler": fused_solver.EULER_LAUNCHES}
+    mpc_launches = counters()
     res = holder["res"]
     d0 = float(torch.linalg.vector_norm(s_mpc.qpos[0, :2] - target))
     heads = res.states[..., :2].reshape(-1, 2)
@@ -894,17 +925,14 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     # ---- 5. headline: the bench.py rollout (stand task, spline policy) ----
     task, rollout = headline(m, B, horizon)
     rollout()                                          # warm-up
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
-    fused_solver.EULER_LAUNCHES = 0
+    counters_zero()
     res = rollout()
     if device != "cpu":
         torch.cuda.synchronize()
-    launches = {"smooth": fused_smooth.LAUNCHES,
-                "solver": fused_solver.LAUNCHES,
-                "euler": fused_solver.EULER_LAUNCHES}
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    launches = counters()
+    counters_zero()
     ms = timer(rollout, 3)
-    timed = {"smooth": fused_smooth.LAUNCHES, "solver": fused_solver.LAUNCHES}
+    timed = counters()
     returns = res.total_return
     log("rollout", gpu=gpu, batch=B, horizon=horizon, ms=ms,
         steps_per_s=B * horizon / (ms * 1e-3), launches=launches,
@@ -913,7 +941,8 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     if device != "cpu":
         assert launches == {"smooth": horizon, "solver": horizon,
                             "euler": 0}, launches
-        assert timed == {"smooth": 3 * horizon, "solver": 3 * horizon}
+        assert timed == {"smooth": 3 * horizon, "solver": 3 * horizon,
+                         "euler": 0}, timed
     assert bool(torch.isfinite(returns).all()), "non-finite returns"
     assert not bool(res.diverged.any()), "rollout diverged"
 
@@ -924,8 +953,7 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
     gen.manual_seed(0)
     s0 = make_state(m, qpos=humanoid.stand_qpos(m))
     plan_pol = init_policy(m, 3)
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
-    fused_solver.EULER_LAUNCHES = 0
+    counters_zero()
     for i in range(PLAN_CALLS):
         holder = {}
 
@@ -939,9 +967,7 @@ def run(device="cuda", B=BENCH_BATCH, horizon=BENCH_HORIZON,
             latency_ms=lat, best=best, nominal=nominal,
             winner=int(info.winner))
         assert best <= nominal, (best, nominal)
-    plan_launches = {"smooth": fused_smooth.LAUNCHES,
-                     "solver": fused_solver.LAUNCHES,
-                     "euler": fused_solver.EULER_LAUNCHES}
+    plan_launches = counters()
     log("plan_launches", **plan_launches)
     if device != "cpu":
         assert plan_launches == {"smooth": PLAN_CALLS * plan_horizon,
@@ -1007,6 +1033,76 @@ class twins:
         fused_smooth.smooth_raw, fused_solver.solve_step_raw = self.saved
 
 
+class record:
+    """Within the block, the calls of the function `name` of the first
+    module in `modules` (the others import the same function by name)
+    are recorded with their arguments and results, every `every`-th one
+    in `calls`, so that the main path's own calls can be held against
+    the twins after it."""
+
+    def __init__(self, modules, name, every=1):
+        self.modules, self.name, self.every = modules, name, every
+        self.calls, self.n = [], 0
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.modules[0], self.name)
+
+        def spy(*a, **kw):
+            out = fn(*a, **kw)
+            if self.n % self.every == 0:
+                self.calls.append((a, kw, out))
+            self.n += 1
+            return out
+        for mod in self.modules:
+            assert getattr(mod, self.name) is fn, (mod, self.name)
+            setattr(mod, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.modules:
+            setattr(mod, self.name, self.saved)
+
+
+def env_outs(r):
+    """(obs, reward, qpos, qvel) of an env step's result."""
+    return (r[1], r[2], r[0].phys.qpos, r[0].phys.qvel)
+
+
+def env_steps_vs_twins(calls, device):
+    """Env steps recorded on a main path (`record` of rl/env.py's
+    env_step: kernel B1 with per-env packs, then B2, at that path's
+    batch) against the same steps (state, action and draws) through the
+    float64 twins, the float32 twins' numbers beside them. Each env's
+    largest error in obs, reward, qpos and qvel, each over the batch's
+    largest value, within TOL on all but 0.5% of the (env, step) pairs
+    (none at fewer than 200), as rl_env holds one step of
+    4096 reset envs (a float32 rounding can flip an active set in a
+    stiff solve; see rl_smooth_per_env). The paths step the RL model,
+    rl_humanoid_model, whose float64 copy the twins step."""
+    from humanoid_mujoco_torch.rl import env as E
+    base64 = E.rl_humanoid_model(dtype=torch.float64, device=device)
+    e_k, e_t = [], []
+    for (cfg, base, es, act, d), kw, out in calls:
+        assert not kw, kw
+        with twins():
+            t = E.env_step(cfg, base, es, act, d)
+            t64 = E.env_step(cfg, base64, to_float64(es), act.double(),
+                             to_float64(d))
+        ref = env_outs(t64)
+        e_k.append(per_env_err(env_outs(out), ref))
+        e_t.append(per_env_err(env_outs(t), ref))
+    e_k, e_t = torch.cat(e_k), torch.cat(e_t)
+    out = {"steps": len(calls), "batch": calls[0][0][2].batch,
+           "pairs": e_k.numel(), "tol": TOL,
+           "pairs_over_tol_vs_float64": int((e_k > TOL).sum()),
+           "twin_pairs_over_tol_vs_float64": int((e_t > TOL).sum()),
+           "max_rel_err_vs_float64": float(e_k.max()),
+           "median_rel_err_vs_float64": float(e_k.median()),
+           "twin_max_rel_err_vs_float64": float(e_t.max())}
+    assert out["pairs_over_tol_vs_float64"] <= e_k.numel() // 200, out
+    return out
+
+
 def rl_inputs(base, es, seed=11):
     """B1's inputs on RL states: the reset's qpos, qvel 0.2 N, ctrl 0.3 N
     (numpy seed) and one env-style push per env (a one-hot body row of
@@ -1048,6 +1144,29 @@ def device_ms(fn, reps, name):
     n = sum(c for c, _ in rows)
     assert n >= reps, f"the profiler saw {n} launches of {name}"
     return sum(t for _, t in rows) / 1e3 / n
+
+
+def profile_rows(fn):
+    """(name, launches, device µs) of each CUDA kernel that one fn()
+    call ran, from torch.profiler, the busiest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.count, ev.self_device_time_total)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    assert rows, "the profiler saw no device time"
+    return sorted(rows, key=lambda x: -x[2])
+
+
+def profile_busy_ms(fn):
+    """Device busy time (ms) and CUDA kernel launches of one fn() call."""
+    rows = profile_rows(fn)
+    return sum(x[2] for x in rows) / 1e3, sum(x[1] for x in rows)
 
 
 def per_env_err(outs, refs):
@@ -1219,7 +1338,6 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
     share from torch.profiler; wall time from CUDA events, median of 3
     after a warm-up; one env step with the kernels against the same step
     (the same draws) with the twins."""
-    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
     from humanoid_mujoco_torch.rl import env as E
     cfg = E.EnvConfig(standup=True)
     es0, _ = E.batch_reset(cfg, base, RL_RF, B, gen)
@@ -1239,8 +1357,7 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
         return es, obs, r
 
     run()                                            # warm-up
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
-    fused_solver.EULER_LAUNCHES = 0
+    counters_zero()
     E.step = spy
     try:
         es, obs, r = run()
@@ -1248,9 +1365,7 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
         E.step = step
     if device != "cpu":
         torch.cuda.synchronize()
-    launches = {"smooth": fused_smooth.LAUNCHES,
-                "solver": fused_solver.LAUNCHES,
-                "euler": fused_solver.EULER_LAUNCHES}
+    launches = counters()
     n_div = int(torch.stack(diverged).sum())
     assert n_div == 0, f"{n_div} env steps diverged"
     assert bool(torch.isfinite(obs).all() & torch.isfinite(r).all())
@@ -1262,18 +1377,8 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
            "diverged": n_div, "mean_reward_last": float(r.mean())}
     if device != "cpu":
         assert launches["smooth"] == launches["solver"] == nsteps, launches
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        rows = [(ev.key, ev.count, ev.self_device_time_total)
-                for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA
-                and ev.self_device_time_total > 0]
+        rows = profile_rows(run)
         busy = sum(x[2] for x in rows) / 1e3 / nsteps
-        rows.sort(key=lambda x: -x[2])
         out.update(
             cuda_launches_per_env_step=sum(x[1] for x in rows) / nsteps,
             device_busy_ms_per_env_step=busy,
@@ -1281,8 +1386,7 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
             top_kernels=[{"name": k[:60], "per_step": c / nsteps,
                           "ms_per_step": us / 1e3 / nsteps}
                          for k, c, us in rows[:6]])
-        assert rows, "the profiler saw no device time"
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    counters_zero()
     # one env step, kernels against twins, on the same draws: from the
     # reset, against the float64 twins on all but 0.5% of the envs (the
     # float32 twins' count beside it; see rl_smooth_per_env), and after
@@ -1294,10 +1398,8 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
         t64 = E.env_step(
             cfg, E.rl_humanoid_model(dtype=torch.float64, device=device),
             to_float64(es0), act.double(), to_float64(d))
-
-    def outs(r):
-        return (r[1], r[2], r[0].phys.qpos, r[0].phys.qvel)
-    e_k, e_t = per_env_err(outs(k), outs(t64)), per_env_err(outs(t), outs(t64))
+    e_k = per_env_err(env_outs(k), env_outs(t64))
+    e_t = per_env_err(env_outs(t), env_outs(t64))
     out.update(step_envs_over_tol_vs_float64=int((e_k > TOL).sum()),
                twin_step_envs_over_tol_vs_float64=int((e_t > TOL).sum()),
                step_median_err_vs_float64=float(e_k.median()))
@@ -1308,11 +1410,12 @@ def rl_env_phase(base, timer, device, gen, B, nsteps):
     with twins():
         t = E.env_step(cfg, base, settled, act, d)
     errs = {n: rel_err(b, a) for n, a, b in
-            zip(("obs", "reward", "qpos", "qvel"), outs(k), outs(t))}
+            zip(("obs", "reward", "qpos", "qvel"), env_outs(k),
+                env_outs(t))}
     out["settled_step_vs_twin"] = errs
     out["settled_step_vs_twin_max"] = max(errs.values())
     assert out["settled_step_vs_twin_max"] <= TOL, errs
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
+    counters_zero()
     return out, launches
 
 
@@ -1332,7 +1435,8 @@ def rl_train_phase(base, timer, device, gen, sac_kw=None, ppo_kw=None,
     changed; then rl.train's main for 2 iterations into a directory under
     build/, a resume from its checkpoint to 3, and an uninterrupted
     3-iteration run: the resumed parameters must equal the uninterrupted
-    ones to the bit."""
+    ones to the bit. The first run's checkpoint is kept as
+    build/rl_train_ckpt.pt (out["ckpt"]) for the evaluate phase."""
     import shutil
     import tempfile
     from humanoid_mujoco_torch.rl import env as E
@@ -1385,6 +1489,9 @@ def rl_train_phase(base, timer, device, gen, sac_kw=None, ppo_kw=None,
         fresh, _ = train.main(common + ["--out", b, "--steps",
                                         str(3 * spi)])
         out["train_main_s"] = time.perf_counter() - t0
+        # the evaluate phase reads this checkpoint (SAC, 2 iterations)
+        out["ckpt"] = shutil.copy(ckpt, os.path.join(root,
+                                                     "rl_train_ckpt.pt"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name in ("pi", "q", "q_target"):
@@ -1401,7 +1508,6 @@ def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
     """The RL slice's phases (rl_smooth_per_env, rl_env, rl_train).
     Returns the per-env numbers for B1's row and the RL launches of B1
     and B2."""
-    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
     from humanoid_mujoco_torch.rl import env as E
     timer = Timer(device)
     base = E.rl_humanoid_model(device=device)
@@ -1412,13 +1518,10 @@ def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
     log("rl_smooth_per_env", gpu=gpu, **phase)
     env_out, env_launches = rl_env_phase(base, timer, device, gen, B, nsteps)
     log("rl_env", gpu=gpu, **env_out)
-    fused_smooth.LAUNCHES = fused_solver.LAUNCHES = 0
-    fused_solver.EULER_LAUNCHES = 0
+    counters_zero()
     train_out = rl_train_phase(base, timer, device, gen, sac_kw, ppo_kw,
                                train_envs)
-    train_launches = {"smooth": fused_smooth.LAUNCHES,
-                      "solver": fused_solver.LAUNCHES,
-                      "euler": fused_solver.EULER_LAUNCHES}
+    train_launches = counters()
     log("rl_train", gpu=gpu, launches=train_launches, **train_out)
     if device != "cpu":
         assert train_launches["smooth"] > 0 and train_launches["solver"] > 0
@@ -1426,7 +1529,452 @@ def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
     row.update(launches_rl_env=env_launches["smooth"],
                launches_rl_train=train_launches["smooth"])
     return row, {"launches_rl_env": env_launches["solver"],
-                 "launches_rl_train": train_launches["solver"]}
+                 "launches_rl_train": train_launches["solver"]}, \
+        train_out["ckpt"]
+
+
+# the serving slice: the Agent behind the TCP server, MPC in the env,
+# policy evaluation
+SERVE_PLANNERS = ("sampling", "mppi", "cem")
+SERVE_REQUESTS, SERVE_ITERS = 20, 2
+MPC_IN_ENV_SECONDS, MPC_IN_ENV_RF = 0.2, 0.1
+EVAL_RFS, EVAL_EPISODES, EVAL_STEPS = (0.0, 1.0), 16, 100
+# every n-th env step of mpc_in_env and evaluate held against the twins
+MPC_CHECK_EVERY, EVAL_CHECK_EVERY = 2, 10
+
+
+def serve_observations(m, n, seed=3):
+    """n robot observations near the stand pose (numpy seed): joint
+    angles + 0.03 N, joint velocities 0.1 N, angular velocity 0.05 N, the
+    stand quaternion + 0.01 N, normalized."""
+    from humanoid_mujoco_torch.physics import humanoid
+    q0 = humanoid.stand_qpos(m).double().cpu().numpy()
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        quat = q0[3:7] + 0.01 * rng.standard_normal(4)
+        out.append(dict(
+            joint_pos=(q0[7:] + 0.03 * rng.standard_normal(12)).tolist(),
+            joint_vel=(0.1 * rng.standard_normal(12)).tolist(),
+            ang_vel=(0.05 * rng.standard_normal(3)).tolist(),
+            quat=(quat / np.linalg.norm(quat)).tolist()))
+    return out
+
+
+def serve_client(port, requests, result, timeout=120.0):
+    """One TCP connection to 127.0.0.1:port; each request (bytes) sent
+    after the reply to the one before. Fills result["replies"] and
+    result["ms"] (client-side latency of each)."""
+    import socket
+    dec = json.JSONDecoder()
+    replies, ms, buf = [], [], ""
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as c:
+        for req in requests:
+            t0 = time.perf_counter()
+            c.sendall(req)
+            while True:
+                try:
+                    v, end = dec.raw_decode(buf.lstrip())
+                    buf = buf.lstrip()[end:]
+                    break
+                except json.JSONDecodeError:
+                    data = c.recv(65536)
+                    if not data:
+                        raise ConnectionError("the server closed")
+                    buf += data.decode()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            replies.append(v)
+    result.update(replies=replies, ms=ms)
+
+
+def serve_one_planner(m, planner, obs, device, requests,
+                      nsample, horizon):
+    """The Agent (`planner`) behind MPCServer on 127.0.0.1: `requests`
+    JSON requests from a client thread, then a malformed one; replies 12
+    finite floats, the malformed one an error. Kernel launches per
+    request from the counters (set to 0 just before the client starts);
+    then, not counted: position mode against the torque it converts,
+    one request profiled (device busy, idle share against the median
+    latency), and for the sampling planner one planner_step's candidate
+    returns through the kernels against the twins on the same noise."""
+    import threading
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.serving import MPCServer
+    from humanoid_mujoco_torch.serving.server import (
+        TORQUE_TO_POSITION_MULTIPLIER)
+    from humanoid_mujoco_torch.tasks import stand_task
+    agent = Agent(m, stand_task(device=device), planner=planner,
+                  nsample=nsample, horizon=horizon)
+    srv = MPCServer(agent, planner_iterations=SERVE_ITERS, port=0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    assert srv.listening.wait(30.0), "the server did not bind"
+    srv.compute_action(**obs[0])                     # warm-up
+    reqs = [json.dumps(o).encode() for o in obs[:requests]]
+    reqs.append(b'{"joint_pos": [1, 2]}')
+    result = {}
+    counters_zero()
+    client = threading.Thread(target=serve_client,
+                              args=(srv.port, reqs, result), daemon=True)
+    client.start()
+    client.join(timeout=600.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = counters()
+    srv.stop()
+    server.join(timeout=30.0)
+    assert not client.is_alive() and not server.is_alive(), \
+        "the client or the server did not finish"
+    replies, ms = result["replies"], result["ms"][:requests]
+    for r in replies[:requests]:
+        assert isinstance(r, list) and len(r) == 12 \
+            and np.all(np.isfinite(r)), r
+    assert set(replies[-1]) == {"error"}, replies[-1]
+    out = {"planner": planner, "requests": requests,
+           "nsample": agent.cfg.nsample, "horizon": agent.cfg.horizon,
+           "planner_iterations": SERVE_ITERS,
+           "median_ms": float(np.median(ms)),
+           "p90_ms": float(np.percentile(ms, 90)),
+           "max_ms": float(np.max(ms)),
+           "control_hz": 1e3 / float(np.median(ms)),
+           "launches_per_request": {k: v / requests
+                                    for k, v in launches.items()}}
+    if device != "cpu":
+        steps = SERVE_ITERS * agent.cfg.horizon
+        assert launches == {"smooth": steps * requests,
+                            "solver": steps * requests, "euler": 0}, \
+            launches
+    # position mode: joint_pos + 0.3 * the torque it converts
+    seen = []
+    get_action = agent.get_action
+
+    def spy(*a, **kw):
+        seen.append(get_action(*a, **kw))
+        return seen[-1]
+    agent.get_action, srv.position_mode = spy, True
+    pos = srv.compute_action(**obs[0])
+    agent.get_action, srv.position_mode = get_action, False
+    want = (np.asarray(obs[0]["joint_pos"])
+            + TORQUE_TO_POSITION_MULTIPLIER * seen[0])
+    assert np.allclose(pos, want, rtol=0, atol=1e-6), (pos, want)
+    out["position_mode_ok"] = True
+    # where a request's time goes: one planner_step (CUDA events, median
+    # of 3; the request runs SERVE_ITERS of them after the search)
+    out["planner_step_ms"] = Timer(device)(agent.planner_step, 3)
+    if device != "cpu":
+        busy, n = profile_busy_ms(lambda: srv.compute_action(**obs[1]))
+        out.update(device_busy_ms_per_request=busy,
+                   cuda_launches_per_request=n,
+                   idle_share=1.0 - busy / out["median_ms"])
+    if planner == "sampling":
+        t0 = time.perf_counter()
+        out["candidates_vs_twins"] = candidates_vs_twins(agent, device)
+        out["candidates_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def candidates_vs_twins(agent, device, perturbations=3):
+    """One planner_step's candidates (the agent's nominal from its state,
+    64 candidates from seeded noise) through the kernels against the
+    float64 twins, on the card, the float32 twins' numbers beside them:
+
+    - every step of every candidate, in lockstep along the kernels'
+      trajectory: the kernel step against the float64 twins' step from
+      the same state and control, within TOL on all but 0.5% of the
+      (candidate, step) pairs, as the RL phases hold B2 on reset states;
+      a pair over TOL is a knife-edge step (a float32 rounding flips a
+      contact or limit row's active set, ROADMAP "Knife-edge limit
+      rows");
+    - the candidates' returns against the float64 twins' rollouts of
+      the same candidates, within TOL for every candidate that has no
+      knife-edge step and whose return is well conditioned: the float64
+      return moves by at most TOL when the start state is perturbed at
+      the size of one step's kernel-to-twin difference (qpos 1e-6, qvel
+      1e-5; `perturbations` seeded draws). A rollout that passes that
+      close to a contact or limit row's switch parts at the switch, in
+      float32 or float64 alike; such candidates are counted and
+      reported, not asserted on.
+
+    Errors are over the batch's largest value of each output."""
+    from humanoid_mujoco_torch.mpc import make_plan_model
+    from humanoid_mujoco_torch.ops.spline import spline_sample
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.physics.step import step
+    from humanoid_mujoco_torch.planners.sampling import (plan_nominal,
+                                                         sample_candidates)
+    from humanoid_mujoco_torch.rollout import rollout_spline
+    from humanoid_mujoco_torch.tasks import stand_task
+    pm, cfg, state = agent.plan_model, agent.cfg, agent.state
+    N = cfg.nsample
+    nominal = plan_nominal(pm, cfg, agent.pstate, state, "check")
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    cands = sample_candidates(pm, cfg, nominal.values, generator=g)
+    s0 = State(qpos=state.qpos.expand(N, -1), qvel=state.qvel.expand(N, -1),
+               time=state.time.expand(N))
+    pm64 = make_plan_model(humanoid.build_humanoid(
+        dtype=torch.float64, device=device), agent.plan_dt)
+    task64 = stand_task(dtype=torch.float64, device=device)
+
+    def returns(m, task, s, cast):
+        return rollout_spline(m, task, s, cast(nominal.times), cast(cands),
+                              cfg.order, cfg.horizon,
+                              solver_iters=cfg.solver_iters
+                              ).total_return.double()
+
+    def same(x):
+        return x
+    ker = returns(pm, agent.task, s0, same)
+    with twins():
+        tw = returns(pm, agent.task, s0, same)
+        s64 = to_float64(s0)
+        t64 = returns(pm64, task64, s64, to_float64)
+        moved = torch.zeros_like(t64)
+        for _ in range(perturbations):
+            sp = State(
+                qpos=s64.qpos + 1e-6 * torch.randn(
+                    s64.qpos.shape, generator=g, device=device,
+                    dtype=torch.float64),
+                qvel=s64.qvel + 1e-5 * torch.randn(
+                    s64.qvel.shape, generator=g, device=device,
+                    dtype=torch.float64),
+                time=s64.time)
+            moved = torch.maximum(
+                moved, (returns(pm64, task64, sp, to_float64) - t64).abs())
+    lo, hi = pm.act_ctrlrange[:, 0], pm.act_ctrlrange[:, 1]
+    # (candidate, step) errors against the float64 twins' step
+    pair_k = torch.zeros((N, cfg.horizon), dtype=torch.float64,
+                         device=device)
+    pair_32 = torch.zeros_like(pair_k)
+    s = s0
+    for i in range(cfg.horizon):
+        ctrl = torch.clamp(spline_sample(nominal.times, cands, s.time,
+                                         cfg.order), lo, hi)
+        k = step(pm, s, ctrl, solver_iters=cfg.solver_iters)[0]
+        with twins():
+            t32 = step(pm, s, ctrl, solver_iters=cfg.solver_iters)[0]
+            ref = step(pm64, to_float64(s), ctrl.double(),
+                       solver_iters=cfg.solver_iters)[0]
+        ref = (ref.qpos, ref.qvel)
+        pair_k[:, i] = per_env_err((k.qpos, k.qvel), ref)
+        pair_32[:, i] = per_env_err((t32.qpos, t32.qvel), ref)
+        s = k
+    knife_pairs = (pair_k > TOL).cpu().numpy()
+    step_k = pair_k.amax(dim=1).cpu().numpy()
+    step_32 = pair_32.amax(dim=1).cpu().numpy()
+
+    def rel(x):
+        return ((x - t64).abs() / t64.abs().max()).cpu().numpy()
+    err, err_32 = rel(ker), rel(tw)
+    moved = (moved / t64.abs().max()).cpu().numpy()
+    knife_step = knife_pairs.any(axis=1)
+    ill = moved > TOL
+    held = ~(knife_step | ill)
+    out = {"candidates": N, "steps": cfg.horizon, "tol": TOL,
+           "pairs": N * cfg.horizon,
+           "knife_edge_pairs": int(knife_pairs.sum()),
+           "twin_float32_knife_edge_pairs": int((pair_32 > TOL).sum()),
+           "step_max_rel_err_vs_float64": float(step_k[~knife_step].max()),
+           "step_median_rel_err_vs_float64": float(np.median(step_k)),
+           "twin_step_median_rel_err_vs_float64": float(np.median(step_32)),
+           "knife_edge_step_candidates": np.flatnonzero(knife_step).tolist(),
+           "twin_float32_knife_edge_step_candidates":
+               np.flatnonzero(step_32 > TOL).tolist(),
+           "ill_conditioned_candidates": np.flatnonzero(ill).tolist(),
+           "held_candidates": int(held.sum()),
+           "returns_max_rel_err_vs_float64": float(err[held].max()),
+           "twin_returns_max_rel_err_vs_float64": float(err_32[held].max()),
+           "returns_over_tol": np.flatnonzero(err > TOL).tolist(),
+           "twin_returns_over_tol": np.flatnonzero(err_32 > TOL).tolist(),
+           "max_return": float(t64.max())}
+    log("serving_candidates", **out)
+    assert out["knife_edge_pairs"] <= int(0.005 * N * cfg.horizon), out
+    assert held.sum() >= N // 3, out
+    assert err[held].max() <= TOL, out
+    return out
+
+
+def root_height_check(m, obs, device, timer):
+    """The root-height search: its time (CUDA events, median of 5), its
+    device busy time and launches (torch.profiler) and, on every
+    observation, the float32 pick against the float64 twin's:
+    the same index, a neighbour (candidates 2.5 mm apart) or farther,
+    with the scores."""
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.serving import (find_ideal_root_height,
+                                               root_height_scores)
+    o = obs[0]
+    ms = timer(lambda: find_ideal_root_height(m, o["joint_pos"],
+                                              o["quat"]), 5)
+    out = {"root_height_ms": ms}
+    if device != "cpu":
+        busy, n = profile_busy_ms(lambda: find_ideal_root_height(
+            m, o["joint_pos"], o["quat"]))
+        out.update(root_height_busy_ms=busy, root_height_cuda_launches=n)
+    m64 = humanoid.build_humanoid(dtype=torch.float64, device=device)
+    picks = {"same": 0, "neighbour": 0, "farther": 0}
+    worst = None
+    for o in obs:
+        zs, s32 = root_height_scores(m, o["joint_pos"], o["quat"])
+        _, s64 = root_height_scores(m64, o["joint_pos"], o["quat"])
+        assert bool(torch.isfinite(s32).all()), "non-finite scores"
+        i32, i64 = int(torch.argmin(s32)), int(torch.argmin(s64))
+        d = abs(i32 - i64)
+        picks["same" if d == 0 else "neighbour" if d == 1
+              else "farther"] += 1
+        if d and (worst is None or d > worst["index_gap"]):
+            worst = {"index_gap": d, "i32": i32, "i64": i64,
+                     "f64_score_at_i32": float(s64[i32]),
+                     "f64_score_at_i64": float(s64[i64]),
+                     "f32_score_at_i32": float(s32[i32]),
+                     "f32_score_at_i64": float(s32[i64])}
+    return {**out, "observations": len(obs), "f32_vs_f64_pick": picks,
+            "largest_gap": worst}
+
+
+def swimmer_agent(device):
+    """Agent("Swimmer" by registry id, sampling): one planner_step and
+    one step, through the plain smooth stage and B3, the transition
+    through _light_info. Each B3 launch of that run (the plan's 17
+    rollout steps at the Agent's 64 candidates, the step at batch 1) is
+    then held against B3's float32 twin on the same inputs within TOL,
+    the float64 twin's error beside it."""
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.physics import fused_solver
+    from humanoid_mujoco_torch.tasks import home_qpos, task_model
+    m = task_model("Swimmer", device=device)
+    a = Agent(m, "Swimmer", planner="sampling")
+    a.set_state(qpos=home_qpos("Swimmer", m))
+    counters_zero()
+    with record([fused_solver], "solve_constraints_euler") as rec:
+        best = a.planner_step()
+        u = a.step()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    n = counters()
+    assert np.isfinite(best) and np.all(np.isfinite(u))
+    if device != "cpu":
+        assert n == {"smooth": 0, "solver": 0,
+                     "euler": a.cfg.horizon + 1}, n
+    names = ("qacc", "qvel_new", "efc_force", "qfrc_constraint")
+    worst, worst64 = {}, {}
+    for args, kw, ker in rec.calls:
+        ref = fused_solver.solve_constraints_euler_reference(*args, **kw)
+        ref64 = fused_solver.solve_constraints_euler_reference(
+            *[x.double() if torch.is_tensor(x) else x for x in args], **kw)
+        for nm, r, r64, o in zip(names, ref, ref64, ker):
+            if r.numel():
+                worst[nm] = max(worst.get(nm, 0.0), rel_err(r, o, nm))
+                worst64[nm] = max(worst64.get(nm, 0.0), rel_err(r64, o, nm))
+    out = {"best_return": best, "launches": n,
+           "b3_calls_vs_twin": len(rec.calls),
+           "b3_batches": sorted({c[0][0].shape[0] for c in rec.calls}),
+           "b3_max_rel_err_vs_twin": max(worst.values()),
+           "b3_max_rel_err_vs_float64": max(worst64.values()),
+           "tol": TOL, "b3_errs_vs_twin": worst}
+    assert out["b3_max_rel_err_vs_twin"] <= TOL, out
+    return out
+
+
+def run_serving(device="cuda", gpu="cpu", ckpt=None,
+                planners=SERVE_PLANNERS, requests=SERVE_REQUESTS,
+                nsample=64, horizon=17, mpc_seconds=MPC_IN_ENV_SECONDS,
+                eval_episodes=EVAL_EPISODES, eval_steps=EVAL_STEPS):
+    """The serving slice's phases: `serving` (each planner behind the
+    TCP server, the root-height search), `mpc_in_env` and `evaluate`
+    (on `ckpt`, rl_train's checkpoint, removed afterwards), each with
+    its env steps held against the twins (`env_steps_vs_twins`: every
+    MPC_CHECK_EVERY-th step of mpc_in_env at batch 1, every
+    EVAL_CHECK_EVERY-th of evaluate at its episodes' batch), and
+    `swimmer_agent`; then
+    `serving_walls`, the host wall time of each. Returns the launches
+    of B1, B2 and B3 on these paths for the kernel table."""
+    import shutil
+    import tempfile
+    from humanoid_mujoco_torch import mpc_in_env
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.rl import env as E
+    from humanoid_mujoco_torch.rl import evaluate as V
+    t_all = time.perf_counter()
+    walls = {}
+    timer = Timer(device)
+    m = humanoid.build_humanoid(device=device)
+    obs = serve_observations(m, requests)
+    per = []
+    for p in planners:
+        t0 = time.perf_counter()
+        per.append(serve_one_planner(m, p, obs, device, requests, nsample,
+                                     horizon))
+        walls[f"serving_{p}_s"] = time.perf_counter() - t0
+        if "candidates_wall_s" in per[-1]:
+            walls["serving_candidates_s"] = per[-1]["candidates_wall_s"]
+    t0 = time.perf_counter()
+    height = root_height_check(m, obs, device, timer)
+    walls["root_height_s"] = time.perf_counter() - t0
+    log("serving", gpu=gpu, planners=per, **height)
+
+    counters_zero()
+    t0 = time.perf_counter()
+    with record([E], "env_step", MPC_CHECK_EVERY) as rec:
+        out = mpc_in_env.run(seconds=mpc_seconds,
+                             randomization_factor=MPC_IN_ENV_RF,
+                             planner="sampling", device=device,
+                             verbose=False)
+    wall = time.perf_counter() - t0
+    mie = counters()
+    t0 = time.perf_counter()
+    mie_check = env_steps_vs_twins(rec.calls, device)
+    walls.update(mpc_in_env_s=wall,
+                 mpc_in_env_check_s=time.perf_counter() - t0)
+    log("mpc_in_env", gpu=gpu, seconds=mpc_seconds, rf=MPC_IN_ENV_RF,
+        planner="sampling", wall_s=wall, launches=mie,
+        env_steps_vs_twins=mie_check, **out)
+    assert out["steps"] > 0 and np.isfinite(out["mean_reward"]), out
+    assert rec.n == out["steps"], (rec.n, out)
+    if device != "cpu":
+        assert mie["smooth"] > 0 and mie["solver"] > 0, mie
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="evaluate_", dir=root)
+    try:
+        counters_zero()
+        t0 = time.perf_counter()
+        with record([E, V], "env_step", EVAL_CHECK_EVERY) as rec:
+            rows = V.evaluate(ckpt, rand_factors=EVAL_RFS,
+                              n_episodes=eval_episodes,
+                              max_steps=eval_steps, out=tmp, device=device)
+        wall = time.perf_counter() - t0
+        ev = counters()
+        written = sorted(os.listdir(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.remove(ckpt)
+    t0 = time.perf_counter()
+    ev_check = env_steps_vs_twins(rec.calls, device)
+    walls.update(evaluate_s=wall, evaluate_check_s=time.perf_counter() - t0)
+    log("evaluate", gpu=gpu, episodes=eval_episodes, max_steps=eval_steps,
+        wall_s=wall, launches=ev, rows=rows, files=written,
+        env_steps_vs_twins=ev_check)
+    assert "eval.csv" in written, written
+    assert all(np.all(np.isfinite(list(r.values()))) for r in rows), rows
+    if device != "cpu":
+        assert ev["smooth"] > 0 and ev["solver"] > 0, ev
+
+    t0 = time.perf_counter()
+    sw = swimmer_agent(device)
+    walls["swimmer_agent_s"] = time.perf_counter() - t0
+    log("swimmer_agent", gpu=gpu, **sw)
+    log("serving_walls", **walls, total_s=time.perf_counter() - t_all)
+    serve = per[0]["launches_per_request"]
+    return ({"launches_serving_per_request": serve["smooth"],
+             "launches_mpc_in_env": mie["smooth"],
+             "launches_evaluate": ev["smooth"]},
+            {"launches_serving_per_request": serve["solver"],
+             "launches_mpc_in_env": mie["solver"],
+             "launches_evaluate": ev["solver"]},
+            {"launches_swimmer_agent": sw["launches"]["euler"]})
 
 
 def main():
@@ -1477,9 +2025,13 @@ def main():
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)
     table.append(run_swimmer("cuda", gpu=smi, humanoid_b3=b3_rows))
-    b1_rl, b2_rl = run_rl("cuda", gpu=smi)
+    b1_rl, b2_rl, ckpt = run_rl("cuda", gpu=smi)
     table[0].update(b1_rl)
     table[1].update(b2_rl)
+    b1_sv, b2_sv, b3_sv = run_serving("cuda", gpu=smi, ckpt=ckpt)
+    table[0].update(b1_sv)
+    table[1].update(b2_sv)
+    table[2].update(b3_sv)
     log("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -28,3 +28,8 @@ def resolve_device(device=None) -> torch.device:
             "device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+from .agent import Agent  # noqa: E402  (needs resolve_device above)
+
+__all__ = ["resolve_device", "Agent"]

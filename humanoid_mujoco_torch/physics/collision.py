@@ -135,6 +135,30 @@ def collide(m: Model, xpos: torch.Tensor, xmat: torch.Tensor) -> Contacts:
                     friction_tor=tor, friction_roll=roll)
 
 
+def select_contacts(contacts: Contacts, k: int):
+    """Keep the k slots with the smallest signed gap, per env.
+
+    Counterpart of the JAX package's `select_contacts` (`lax.top_k` of
+    -dist). Ties go to the lower slot index, as `lax.top_k` breaks them:
+    a stable ascending sort, whose first k entries are taken (the
+    humanoid's mirrored spheres have exactly equal gaps at a symmetric
+    pose, and `torch.topk` promises no order among ties). Returns the
+    reduced Contacts (B, k, ...) and `sel` (B, k) int64, the original
+    slot indices.
+    """
+    sel = torch.sort(contacts.dist, dim=-1, stable=True).indices[:, :k]
+
+    def g(x):
+        idx = sel if x.ndim == 2 else sel[..., None].expand(-1, -1,
+                                                             x.shape[-1])
+        return torch.gather(x, 1, idx)
+
+    return Contacts(pos=g(contacts.pos), normal=g(contacts.normal),
+                    dist=g(contacts.dist), friction=g(contacts.friction),
+                    friction_tor=g(contacts.friction_tor),
+                    friction_roll=g(contacts.friction_roll)), sel
+
+
 def tangent_frame(normal: torch.Tensor):
     """Two unit tangents orthogonal to each normal, branch-free.
     normal (..., 3) -> (t1, t2)."""

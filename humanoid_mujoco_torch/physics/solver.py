@@ -115,8 +115,7 @@ def make_rows(m: Model, qpos: torch.Tensor) -> Rows:
     pos, k, b, d are (B, nlim), with k and b from the model's dt."""
     if m.ncon:
         raise NotImplementedError(
-            "contact pyramid rows and top-k contact selection outside "
-            "the kernel family come with slice 4 of the port")
+            "a model with contact slots takes make_contact_rows")
     lim_tab = m.struct_static("lim_tab", lambda: limit_rows_static(m))
     J = m.struct_static(
         ("lim_J", qpos.dtype, qpos.device), lambda: torch.tensor(
@@ -159,11 +158,12 @@ def rows_from_raw(cdof, dmask, rel, normal, dist, mu3, kcon, bcon, dcon,
                   lim_tab, lim_pos, lim_k, lim_b, lim_d) -> Rows:
     """Constraint rows from raw contact data, edge-major:
     [limits; edge0 c0..cK-1; edge1 c0..cK-1; ...]. cdof (B, nv, 6),
-    dmask (K, nv), contact arrays (B, K, ...), limit arrays (B, nlim)."""
+    dmask (K, nv) static or (B, K, nv) per env (after a top-k
+    selection), contact arrays (B, K, ...), limit arrays (B, nlim)."""
     B, nv = cdof.shape[:2]
     ang, lin = cdof[:, None, :, :3], cdof[:, None, :, 3:]     # (B,1,nv,3)
     jac_pt = lin + pm.cross(ang, rel[:, :, None, :])          # (B,K,nv,3)
-    dm = dmask[None, :, :, None]
+    dm = (dmask if dmask.ndim == 3 else dmask[None])[..., None]
     jac = dm * jac_pt
     jac_ang = dm * ang
     t1, t2 = tangent_frame(normal)
@@ -188,6 +188,25 @@ def rows_from_raw(cdof, dmask, rel, normal, dist, mu3, kcon, bcon, dcon,
                 k=torch.cat([lim_k] + [kcon] * n, dim=1),
                 b=torch.cat([lim_b] + [bcon] * n, dim=1),
                 d=torch.cat([lim_d] + [dcon] * n, dim=1))
+
+
+def make_contact_rows(m: Model, kin: Kin, qpos: torch.Tensor,
+                      contacts: Contacts, sel=None) -> Rows:
+    """Raw constraint rows of a model with contact slots: the joint
+    limits, then the condim-6 pyramid edges of `contacts` (the contact
+    block of the JAX make_rows). `contacts` is the full slot set or a
+    top-k reduced one from collision.select_contacts, whose `sel` (B, k)
+    gathers the static per-slot dof masks. Rows are edge-major, as
+    `rows_from_raw` builds them; the JAX make_rows orders them contact-
+    major, which changes no solve (every consumer reduces over rows)."""
+    dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts)
+    if sel is not None:
+        dmask = dmask[sel]                                   # (B, k, nv)
+    lim_tab = m.struct_static("lim_tab", lambda: limit_rows_static(m))
+    lpos, kl, bl, dl = limit_rows_data(m, qpos)
+    return rows_from_raw(kin.cdof, dmask, rel, contacts.normal,
+                         contacts.dist, mu3, kc, bc, dc, lim_tab, lpos, kl,
+                         bl, dl)
 
 
 def finish_efc(rows: Rows, qvel: torch.Tensor, Mchol: torch.Tensor) -> Efc:

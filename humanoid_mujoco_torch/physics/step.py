@@ -19,6 +19,13 @@ run the kernels' plain PyTorch twins; CUDA tensors run the kernels.
 Other models (contacts outside B1's family, no constraint rows at all)
 come with slice 4 of the port and raise.
 
+`forward` is the JAX package's forward dynamics (qacc, qfrc_total, M,
+StepInfo) without the Euler update, plain PyTorch on every device as in
+the JAX package (it has no kernel there): the smooth stage, collision,
+top-k contact selection when 0 < max_contacts < ncon, the rows, their
+Newton solve on M. Its first user is the serving path's root-height
+search (serving/state_estimation.py).
+
 Divergence guard: `StepInfo.diverged` flags non-finite or exploding
 states, and `step` freezes such an environment (qpos kept, qvel zeroed)
 so a diverged rollout stays finite.
@@ -31,10 +38,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops import linalg
 from . import engine, fused_smooth, fused_solver
 from . import math as pm
+from .collision import collide, select_contacts
 from .model import ActuatorType, JointType, Model, State
-from .solver import contact_dmask, limit_rows_static, make_rows
+from .solver import (contact_dmask, finish_efc, limit_rows_static,
+                     make_contact_rows, make_rows, newton_solve)
 
 _QVEL_LIMIT = 1e4
 
@@ -79,6 +89,77 @@ def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor, dt
         else:
             cols.append(qpos[:, qadr:qadr + 1] + dt * qvel[:, vadr:vadr + 1])
     return torch.cat(cols, dim=-1)
+
+
+def _contact_forces(efc_f: torch.Tensor, nlim: int, sel, ncon: int
+                    ) -> torch.Tensor:
+    """Per-slot normal forces (B, ncon): the sum of each slot's 10
+    pyramid-edge forces (every condim-6 edge has a unit normal
+    coefficient; rows edge-major after `nlim` limit rows), scattered back
+    to the full slot layout when a top-k selection `sel` (B, k) is
+    active."""
+    B = efc_f.shape[0]
+    k = (efc_f.shape[1] - nlim) // 10
+    cf = efc_f[:, nlim:nlim + 10 * k].reshape(B, 10, k).sum(dim=1)
+    if sel is None:
+        return cf
+    return cf.new_zeros((B, ncon)).scatter(1, sel, cf)
+
+
+def forward(m: Model, state: State, ctrl: torch.Tensor,
+            xfrc: Optional[torch.Tensor] = None, solver_iters: int = 8,
+            ift: bool = False):
+    """Forward dynamics on a batch: (qacc (B, nv), qfrc_total (B, nv),
+    M (B, nv, nv), StepInfo), qacc = the constrained acceleration on M
+    (no implicit damping; `step` re-solves with it).
+
+    Plain PyTorch on the CPU and the card alike, as the JAX `forward`
+    is plain XLA everywhere: with 0 < max_contacts < ncon it solves only
+    the max_contacts slots with the smallest gaps (the humanoid: 32 of
+    67), which the kernels' selection-free step does not.
+    """
+    if ift:
+        raise NotImplementedError(
+            "forward(ift=True), the implicit-function derivative path, "
+            "comes with slice 5 of the port")
+    qpos, qvel = state.qpos, state.qvel
+    if qpos.dtype != m.dtype or qpos.device != m.device:
+        raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
+                         f"match the model ({m.dtype}, {m.device})")
+    s = m.struct
+    if s.has_gravcomp or any(t == ActuatorType.SITE_THRUST
+                             for t in s.act_type):
+        raise NotImplementedError(
+            "gravcomp and site actuators come with slice 4 of the port")
+    kin, vel, M, qfrc_smooth = engine.prepare_smooth(m, qpos, qvel, ctrl,
+                                                     xfrc)
+    contacts, sel = None, None
+    if m.ncon:
+        contacts = collide(m, kin.xpos, kin.xmat)
+        dist = contacts.dist
+        if 0 < s.max_contacts < m.ncon:
+            contacts, sel = select_contacts(contacts, s.max_contacts)
+    else:
+        dist = qpos.new_zeros((qpos.shape[0], 0))
+    Mchol = linalg.chol_factor(M)
+    rows = (make_contact_rows(m, kin, qpos, contacts, sel) if m.ncon
+            else make_rows(m, qpos))
+    efc = finish_efc(rows, qvel, Mchol)
+    qacc, efc_f, qfrc_constraint = newton_solve(M, Mchol, qfrc_smooth, efc,
+                                                niter=solver_iters)
+    nlim = len(m.struct_static("lim_tab", lambda: limit_rows_static(m)))
+    cf = _contact_forces(efc_f, nlim, sel, m.ncon)
+    qfrc_total = qfrc_smooth + qfrc_constraint
+    diverged = (~torch.isfinite(qacc).all(dim=-1)
+                | (qvel.abs().amax(dim=-1) > _QVEL_LIMIT))
+    info = StepInfo(
+        xpos=kin.xpos, xquat=kin.xquat, xipos=kin.xipos,
+        site_xpos=kin.site_xpos, com=kin.anchor, com_vel=vel.com_vel,
+        body_com_vel=engine.body_com_velocities(kin, vel),
+        contact_dist=dist, contact_force=cf, qacc=qacc,
+        actuator_force=engine.actuator_force(m, qpos, qvel, ctrl),
+        qfrc_total=qfrc_total, diverged=diverged)
+    return qacc, qfrc_total, M, info
 
 
 def _check(m: Model, qpos: torch.Tensor, ift: bool) -> bool:

@@ -71,23 +71,37 @@ def sample_candidates(m: Model, cfg: SamplingConfig, nominal: torch.Tensor,
     return torch.clamp(nominal[None] + noise, lo, hi)
 
 
+def plan_nominal(m: Model, cfg, policy: SplinePolicy, state: State,
+                 name: str) -> SplinePolicy:
+    """The policy resampled to the state's time on a fresh knot grid; a
+    sampling planner plans from one state (batch 1)."""
+    if state.batch != 1:
+        raise ValueError(f"{name} plans from one state (batch 1)")
+    return resample_policy(policy, state.time[0], cfg.horizon * m.dt,
+                           cfg.nknots, cfg.order)
+
+
+def candidate_returns(m: Model, task: Task, cfg, state: State,
+                      times: torch.Tensor, cands: torch.Tensor
+                      ) -> torch.Tensor:
+    """Total returns (N,) of candidate knot values (N, K, nu), all
+    rolled out from the one state in a single batch."""
+    N = cands.shape[0]
+    sN = State(qpos=state.qpos.expand(N, -1), qvel=state.qvel.expand(N, -1),
+               time=state.time.expand(N))
+    return rollout_spline(m, task, sN, times, cands, cfg.order, cfg.horizon,
+                          solver_iters=cfg.solver_iters).total_return
+
+
 def sampling_plan(m: Model, task: Task, cfg: SamplingConfig,
                   policy: SplinePolicy, state: State,
                   generator: Optional[torch.Generator] = None,
                   noise: Optional[torch.Tensor] = None
                   ) -> Tuple[SplinePolicy, PlanInfo]:
     """One OptimizePolicy iteration from a single state (batch 1)."""
-    if state.batch != 1:
-        raise ValueError("sampling_plan plans from one state (batch 1)")
-    nominal = resample_policy(policy, state.time[0], cfg.horizon * m.dt,
-                              cfg.nknots, cfg.order)
+    nominal = plan_nominal(m, cfg, policy, state, "sampling_plan")
     cands = sample_candidates(m, cfg, nominal.values, generator, noise)
-    N = cfg.nsample
-    sN = State(qpos=state.qpos.expand(N, -1), qvel=state.qvel.expand(N, -1),
-               time=state.time.expand(N))
-    returns = rollout_spline(m, task, sN, nominal.times, cands, cfg.order,
-                             cfg.horizon,
-                             solver_iters=cfg.solver_iters).total_return
+    returns = candidate_returns(m, task, cfg, state, nominal.times, cands)
     winner = torch.argmin(returns)
     info = PlanInfo(returns=returns, winner=winner,
                     best_return=returns[winner], nominal_return=returns[0],

@@ -1,0 +1,6 @@
+from .server import MPCServer, serve
+from .state_estimation import (find_ideal_root_height, root_height_scores,
+                               set_robot_state)
+
+__all__ = ["find_ideal_root_height", "root_height_scores",
+           "set_robot_state", "MPCServer", "serve"]

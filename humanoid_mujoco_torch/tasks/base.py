@@ -75,6 +75,20 @@ class Task:
                  ctrl: torch.Tensor) -> torch.Tensor:
         return self.residual_fn(m, self, state, info, ctrl)
 
+    def set_weight(self, name: str, value) -> "Task":
+        """SetCostWeights verb: a copy with term `name` weighted `value`."""
+        i = [t.name for t in self.terms].index(name)
+        w = self.weights.clone()
+        w[i] = value
+        return dataclasses.replace(self, weights=w)
+
+    def set_param(self, name: str, value) -> "Task":
+        """SetTaskParameters verb: a copy with parameter `name` set."""
+        i = self.param_names.index(name)
+        p = self.params.clone()
+        p[i] = value
+        return dataclasses.replace(self, params=p)
+
     def set_mocap(self, name: str, pos=None, quat=None) -> "Task":
         """SetMocap verb: a copy with mocap body `name` moved."""
         i = self.mocap_names.index(name)

@@ -4,10 +4,11 @@ The checks live in the other tests/test_torch_*.py modules: math and
 ops, the model, the twins of the three CUDA kernels, the step, rollouts
 and the sampling planner, the Swimmer's constraint stage, step, rollout,
 transition and MPC loop, the RL env (per-env parameters), SAC and PPO,
-each against the JAX package on the same numpy-seeded inputs, and the
-port's import isolation. This test runs
-them all. The kernels themselves are checked on the card by
-chip_smoke.py.
+the serving slice (forward, the root-height search, MPPI, CEM, the
+Agent, the TCP server, policy evaluation, MPC in the env), each against
+the JAX package on the same numpy-seeded inputs, and the port's import
+isolation. This test runs them all. The kernels themselves are checked
+on the card by chip_smoke.py.
 
 One item on purpose: the tier-1 command runs pytest-xdist with
 `--dist load` against a time limit, xdist sizes its chunks from the
@@ -22,9 +23,10 @@ program in interpret mode, about 30 s; the eager kernel-path step, about
 compiles outside the GIL, and JAX keeps `disable_jit` per thread. All
 are cached, so the checks that read them reuse the result. The RL
 slice's three (the env's reset and steps with B1's per-env reference,
-one SAC and one PPO train step) are built in three processes: each is a
-jit trace of the humanoid step, Python that holds the GIL, so threads
-would run them one after another.
+one SAC and one PPO train step) and the serving slice's four (physics,
+planners, agent, evaluate) are built in seven processes: each is a jit
+trace of the humanoid step, Python that holds the GIL, so threads would
+run them one after another.
 """
 
 import multiprocessing
@@ -39,6 +41,7 @@ import test_torch_math
 import test_torch_model
 import test_torch_rl
 import test_torch_rollout
+import test_torch_serving
 import test_torch_step
 import test_torch_swimmer
 
@@ -47,10 +50,13 @@ torch.set_num_threads(1)
 
 def test_port_matches_jax():
     names = ("env", "sac", "ppo")
+    serving_names = test_torch_serving.NAMES
     with ProcessPoolExecutor(
-            max_workers=len(names),
+            max_workers=len(names) + len(serving_names),
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
+        serving = [procs.submit(test_torch_serving.reference, n)
+                   for n in serving_names]
         rl = [procs.submit(test_torch_rl.reference, n) for n in names]
         swimmer = pool.submit(test_torch_swimmer.jax_swimmer)
         plan = pool.submit(test_torch_rollout.jax_plan)
@@ -68,5 +74,8 @@ def test_port_matches_jax():
         test_torch_rollout.run_checks()
         test_torch_rl.run_reference_checks(
             {n: f.result() for n, f in zip(names, rl)})
+        test_torch_serving.run_local_checks()
+        test_torch_serving.run_reference_checks(
+            {n: f.result() for n, f in zip(serving_names, serving)})
         swimmer.result()
     test_torch_swimmer.run_checks()
