@@ -35,27 +35,32 @@ the port's three paths:
   SACConfig() (2 calls), `ppo_train_step` at PPOConfig() (1 call), and
   rl.train's main for 2 iterations, resumed to 3 from its checkpoint,
   against an uninterrupted 3-iteration run, to the bit (`rl_train`);
-- the serving slice (B1 + B2 under the Agent): for each of the
-  sampling, MPPI and CEM planners, an Agent at its defaults (64
-  samples, horizon 17, plan dt 0.02) behind MPCServer (2 planner
-  iterations) on 127.0.0.1, a client thread's 20 JSON requests (noisy
-  stand-pose observations) and a malformed one: every reply 12 finite
-  floats, the malformed one an error, position mode joint_pos + 0.3
-  torque; median and p90 latency, control rate, B1 and B2 launches per
-  request, device busy and idle share of one request (torch.profiler);
-  one plan's 64 candidates through the kernels against the float64
-  twins, every (candidate, step) pair in lockstep and the returns of
-  the well-conditioned ones (`serving_candidates`); the root-height
-  search's time and its float32 pick against the float64 twin's on
-  every observation (`serving`); 0.2 s of MPC in the randomized env
+- the serving slice (B1 + B2 under the Agent): for each of the sampling,
+  MPPI, CEM and iLQG planners, an Agent at its defaults (64 samples,
+  horizon 17, plan dt 0.02; iLQG's 8 line-search alphas) behind
+  MPCServer (2 planner iterations) on 127.0.0.1, a client thread's 20
+  JSON requests (noisy stand-pose observations) and a malformed one:
+  every reply 12 finite floats, the malformed one an error, position
+  mode joint_pos + 0.3 torque; median and p90 latency, control rate, B1
+  and B2 launches per request, device busy and idle share of one request
+  (torch.profiler); one plan's 64 candidates through the kernels against
+  the float64 twins, every (candidate, step) pair in lockstep and the
+  returns of the well-conditioned ones (`serving_candidates`); the
+  root-height search's time and its float32 pick against the float64
+  twin's on every observation (`serving`); one iLQG iteration's rollout
+  steps (batch 4 and 8) against the float64 twins, the card's float32
+  linearization along its nominal against the float64 twin on the CPU,
+  B1 and B2 on its own inputs at batch 4 and 8 against their twins,
+  timed (`serving_ilqg`); 0.05 s of MPC in the randomized env with the
+  default planner, iLQG (`mpc_in_env_ilqg`), and 0.2 s with sampling
   (`mpc_in_env`); the deterministic policy of rl_train's checkpoint on
-  16 episodes x 100 steps at randomization factors 0 and 1
-  (`evaluate`); the env steps of these two paths (B1 with per-env
-  packs and B2, at batch 1 and 16) recorded as they ran and held
-  against the same steps through the float64 twins; an Agent on the
-  Swimmer by registry id, one plan and one step through B3, each of
-  its B3 launches (batch 64 and 1) held against B3's twin on the same
-  inputs (`swimmer_agent`); the host wall time of each serving phase
+  16 episodes x 100 steps at randomization factors 0 and 1 (`evaluate`);
+  the env steps of these MPC and evaluate runs (B1 with per-env packs
+  and B2, at batch 1 and 16) recorded as they ran and held against the
+  same steps through the float64 twins; an Agent on the Swimmer by
+  registry id, one plan and one step through B3, each of its B3 launches
+  (batch 64 and 1) held against B3's twin on the same inputs
+  (`swimmer_agent`); the host wall time of each serving phase
   (`serving_walls`).
 
 Each path is driven with the kernels' launch counters set to 0 just
@@ -65,8 +70,9 @@ humanoid's rows and the nv-36 case (envs and shared bytes per block,
 shared bytes per env, blocks per SM, registers and spills), and B1's
 with per-env packs. It prints a `kernels` JSON line (time, launch
 count, plain-twin time and roofline bound per kernel; B1's and B2's
-rows also their RL and serving launches, B1's its per-env time and
-bound at B = 4096; B3's row its Swimmer-agent launches) and the
+rows also their RL and serving launches (iLQG's too) and their times
+and bounds at batch 4 and 8, B1's its per-env time and bound at B =
+4096; B3's row its Swimmer-agent launches) and the
 script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
@@ -1063,6 +1069,38 @@ class record:
             setattr(mod, self.name, self.saved)
 
 
+class timed:
+    """Within the block, each call of the functions `names` of `module`
+    adds its host wall time (ms, the device synchronized before and
+    after) to `into[name]`: where one call of the caller spends its
+    time."""
+
+    def __init__(self, module, names, into):
+        self.module, self.names, self.into = module, names, into
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.module, n, self._wrap(n, fn))
+
+    def _wrap(self, name, fn):
+        def spy(*a, **kw):
+            sync = torch.cuda.synchronize if torch.cuda.is_available() \
+                else (lambda: None)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            self.into[name] = (self.into.get(name, 0.0)
+                               + 1e3 * (time.perf_counter() - t0))
+            return out
+        return spy
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
 def env_outs(r):
     """(obs, reward, qpos, qvel) of an env step's result."""
     return (r[1], r[2], r[0].phys.qpos, r[0].phys.qvel)
@@ -1144,6 +1182,25 @@ def device_ms(fn, reps, name):
     n = sum(c for c, _ in rows)
     assert n >= reps, f"the profiler saw {n} launches of {name}"
     return sum(t for _, t in rows) / 1e3 / n
+
+
+def kernel_ms(launch, reps=20, spin_cycles=40_000_000):
+    """Device time (ms) a launch of a bare kernel call (`launch()`, the
+    kernel's C entry on arguments built once, so no wrapper copies):
+    CUDA events around `reps` back-to-back launches queued behind a spin
+    of the card (~20 ms), so that the host's launch cost falls inside
+    the spin, not between the launches."""
+    launch()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    a.record()
+    for _ in range(reps):
+        launch()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def profile_rows(fn):
@@ -1535,9 +1592,12 @@ def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
 
 # the serving slice: the Agent behind the TCP server, MPC in the env,
 # policy evaluation
-SERVE_PLANNERS = ("sampling", "mppi", "cem")
+SERVE_PLANNERS = ("sampling", "mppi", "cem", "ilqg")
 SERVE_REQUESTS, SERVE_ITERS = 20, 2
 MPC_IN_ENV_SECONDS, MPC_IN_ENV_RF = 0.2, 0.1
+# MPC in the env with the default planner, iLQG: a shorter run than
+# sampling's (each tick is two iLQG iterations, ~10x a sampling tick)
+MPC_IN_ENV_ILQG_SECONDS = 0.05
 EVAL_RFS, EVAL_EPISODES, EVAL_STEPS = (0.0, 1.0), 16, 100
 # every n-th env step of mpc_in_env and evaluate held against the twins
 MPC_CHECK_EVERY, EVAL_CHECK_EVERY = 2, 10
@@ -1631,7 +1691,8 @@ def serve_one_planner(m, planner, obs, device, requests,
             and np.all(np.isfinite(r)), r
     assert set(replies[-1]) == {"error"}, replies[-1]
     out = {"planner": planner, "requests": requests,
-           "nsample": agent.cfg.nsample, "horizon": agent.cfg.horizon,
+           "nsample": getattr(agent.cfg, "nsample", None),
+           "horizon": agent.cfg.horizon,
            "planner_iterations": SERVE_ITERS,
            "median_ms": float(np.median(ms)),
            "p90_ms": float(np.percentile(ms, 90)),
@@ -1640,7 +1701,10 @@ def serve_one_planner(m, planner, obs, device, requests,
            "launches_per_request": {k: v / requests
                                     for k, v in launches.items()}}
     if device != "cpu":
-        steps = SERVE_ITERS * agent.cfg.horizon
+        # a sampling planner rolls its candidates out once an iteration,
+        # iLQG twice (the nominal search, then the line search)
+        steps = (SERVE_ITERS * agent.cfg.horizon
+                 * (2 if planner == "ilqg" else 1))
         assert launches == {"smooth": steps * requests,
                             "solver": steps * requests, "euler": 0}, \
             launches
@@ -1877,17 +1941,205 @@ def swimmer_agent(device):
     return out
 
 
+def ilqg_rollouts_vs_twins(calls, pm, device):
+    """The `step` calls of one iLQG iteration's rollouts (the nominal
+    search at batch 4, the line search at batch 8, through B1 and B2)
+    against the same steps through the float64 twins, the float32 twins'
+    numbers beside them: each (rollout, step) pair's largest error in
+    qpos and qvel over the batch's largest value, within TOL on all but
+    0.5% of the pairs, as `candidates_vs_twins` holds a sampling plan's
+    steps."""
+    from humanoid_mujoco_torch.mpc import make_plan_model
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.step import step
+    pm64 = make_plan_model(humanoid.build_humanoid(
+        dtype=torch.float64, device=device), float(pm.dt))
+    e_k, e_t, batches = [], [], {}
+    for (m, s, u), kw, out in calls:
+        batches[s.batch] = batches.get(s.batch, 0) + 1
+        with twins():
+            t32 = step(m, s, u, **kw)[0]
+            t64 = step(pm64, to_float64(s), u.double(), **kw)[0]
+        ref = (t64.qpos, t64.qvel)
+        e_k.append(per_env_err((out[0].qpos, out[0].qvel), ref))
+        e_t.append(per_env_err((t32.qpos, t32.qvel), ref))
+    e_k, e_t = torch.cat(e_k), torch.cat(e_t)
+    out = {"steps_by_batch": batches, "pairs": e_k.numel(), "tol": TOL,
+           "pairs_over_tol_vs_float64": int((e_k > TOL).sum()),
+           "twin_pairs_over_tol_vs_float64": int((e_t > TOL).sum()),
+           "max_rel_err_vs_float64": float(e_k.max()),
+           "median_rel_err_vs_float64": float(e_k.median()),
+           "twin_max_rel_err_vs_float64": float(e_t.max())}
+    assert out["pairs_over_tol_vs_float64"] <= int(0.005 * e_k.numel()), out
+    return out
+
+
+def derivatives_vs_float64(agent, perturbations=2, seed=6):
+    """The card's float32 `trajectory_derivatives` along the agent's
+    nominal (a stand state's plan) against the float64 twin on the CPU
+    (the same function, same nominal): for each knot, each leaf's (A, B,
+    cx, cu, cxx, cxu, cuu) largest error over that knot's largest value,
+    within TOL on every knot that is not knife-edge. A knife-edge knot is
+    one whose float64 linearization itself moves by more than TOL when
+    the nominal's states move by one float32 step's error (qpos 1e-6,
+    qvel 1e-5, `perturbations` seeded draws): a contact or limit row at
+    its switch there. Those are listed, not asserted on."""
+    import dataclasses
+    from humanoid_mujoco_torch.mpc import make_plan_model
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.planners.derivatives import (
+        trajectory_derivatives)
+    from humanoid_mujoco_torch.tasks import stand_task
+    p = agent.pstate.policy
+    t0 = time.perf_counter()
+    d32 = trajectory_derivatives(agent.plan_model, agent.task, p.qpos_nom,
+                                 p.qvel_nom, p.u_nom, p.times)
+    if p.qpos_nom.is_cuda:
+        torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    pm64 = make_plan_model(humanoid.build_humanoid(
+        dtype=torch.float64, device="cpu"), agent.plan_dt)
+    task64 = stand_task(dtype=torch.float64, device="cpu")
+    qp, qv, u, t = (x.double().cpu() for x in (p.qpos_nom, p.qvel_nom,
+                                               p.u_nom, p.times))
+
+    def derivs(qp, qv):
+        d = trajectory_derivatives(pm64, task64, qp, qv, u, t)
+        return {f.name: getattr(d, f.name) for f in dataclasses.fields(d)}
+
+    def knot_err(a, ref):
+        return {k: ((a[k].double().cpu() - r).abs().flatten(1).amax(1)
+                    / (r.abs().flatten(1).amax(1) + 1e-12))
+                for k, r in ref.items()}
+    d64 = derivs(qp, qv)
+    err = knot_err({f.name: getattr(d32, f.name)
+                    for f in dataclasses.fields(d32)}, d64)
+    g = torch.Generator().manual_seed(seed)
+    moved = torch.zeros(u.shape[0], dtype=torch.float64)
+    for _ in range(perturbations):
+        dp = derivs(qp + 1e-6 * torch.randn(qp.shape, generator=g,
+                                            dtype=torch.float64),
+                    qv + 1e-5 * torch.randn(qv.shape, generator=g,
+                                            dtype=torch.float64))
+        moved = torch.maximum(moved, torch.stack(
+            list(knot_err(dp, d64).values())).amax(dim=0))
+    worst = torch.stack(list(err.values())).amax(dim=0)
+    knife = moved > TOL
+    held = ~knife
+    out = {"knots": int(u.shape[0]), "tol": TOL,
+           "card_float32_ms": card_ms,
+           "max_rel_err_by_leaf": {k: float(v[held].max())
+                                   for k, v in err.items()},
+           "knot_max_rel_err": worst.tolist(),
+           "knife_edge_knots": torch.nonzero(knife).flatten().tolist(),
+           "knife_edge_knot_errs": worst[knife].tolist(),
+           "float64_moved_by_perturbation": moved.tolist(),
+           "held_knots": int(held.sum())}
+    assert held.sum() >= u.shape[0] // 2, out
+    assert float(worst[held].max()) <= TOL, out
+    return out
+
+
+def ilqg_checks(m, obs, device, timer, horizon=17):
+    """One iLQG iteration of an Agent at its defaults (horizon 17, plan
+    dt 0.02, 8 line-search alphas) from a served observation's state,
+    after one iteration to give it gains: the wall time of its stages
+    (the two batched rollouts, the linearization, the backward pass;
+    `timed`), its rollout steps against the
+    float64 twins (`ilqg_rollouts_vs_twins`); the linearization along
+    the new nominal against the float64 twin (`derivatives_vs_float64`);
+    B1 and B2 on that iteration's own inputs at batch 4 (the nominal
+    search) and 8 (the line search): against their twins, each kernel's
+    device time a launch (`kernel_ms`), its wrapper's
+    time (CUDA events, median of 20) beside its twin's (median of 5) and
+    its bound (`smooth_cost`, `solve_cost` on these inputs). Returns the
+    log and the kernel rows' additions; the timing launches are taken
+    off the counters."""
+    from humanoid_mujoco_torch import kernels
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    from humanoid_mujoco_torch.planners import ilqg as P
+    from humanoid_mujoco_torch.serving import set_robot_state
+    from humanoid_mujoco_torch.tasks import stand_task
+    agent = Agent(m, stand_task(device=device), horizon=horizon)
+    o = obs[0]
+    agent.state = set_robot_state(m, o["joint_pos"], o["joint_vel"],
+                                  o["ang_vel"], o["quat"])
+    agent.planner_step()
+    n0, n1 = fused_smooth.LAUNCHES, fused_solver.LAUNCHES
+    stages = {}
+    with record([P], "step") as steps, \
+            record([fused_smooth], "smooth_raw") as b1, \
+            record([fused_solver], "solve_step_raw") as b2, \
+            timed(P, ("_feedback_rollout", "trajectory_derivatives",
+                      "backward_pass"), stages):
+        t0 = time.perf_counter()
+        best = agent.planner_step()
+        stages["planner_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    out = {"best_return": best, "reg": float(agent._last_info.reg),
+           "alpha": float(agent._last_info.alpha), "stage_ms": stages,
+           "rollouts_vs_twins": ilqg_rollouts_vs_twins(
+               steps.calls, agent.plan_model, device),
+           "derivatives_vs_float64": derivatives_vs_float64(agent)}
+    nlim = len(limit_rows_static(m))
+    rows = ({}, {})
+    for B in (4, 8):
+        a1, kw1, ker1 = next(c for c in b1.calls if c[0][1].shape[0] == B)
+        a2, kw2, ker2 = next(c for c in b2.calls if c[0][0].shape[0] == B)
+        ref1 = fused_smooth.smooth_raw_reference(*a1, **kw1)
+        ref2 = fused_solver.solve_step_raw_reference(*a2, **kw2)
+        err1 = max(rel_err(r, k, n) for n, r, k in
+                   zip(fused_smooth.NAMES, ref1, ker1))
+        err2 = max(rel_err(r, k) for r, k in zip(ref2, ker2))
+        assert err1 <= TOL and err2 <= TOL, (B, err1, err2)
+        t1 = timer(lambda: fused_smooth.smooth_raw(*a1, **kw1), 20)
+        tr1 = timer(lambda: fused_smooth.smooth_raw_reference(*a1, **kw1),
+                    5)
+        t2 = timer(lambda: fused_solver.solve_step_raw(*a2, **kw2), 20)
+        tr2 = timer(lambda: fused_solver.solve_step_raw_reference(*a2,
+                                                                  **kw2), 5)
+        M, qf, qv = a2[:3]
+        raw = a2[3:8] + a2[9:16]
+        _, _, f, trace = solve_trace(M, qf, qv, raw, a2[8], kw2["lim_tab"])
+        bb1 = bound(*smooth_cost(m, B, nlim, fused_smooth._pack_params(m)))
+        bb2 = bound(*solve_cost(m, B, a2[8], kw2["lim_tab"], f, trace))
+        k1 = k2 = None
+        if device != "cpu":
+            ins, outs, meta, ints = fused_smooth._smooth_launch_args(*a1)
+            p1 = [None if t is None or t.numel() == 0 else t.data_ptr()
+                  for t in ins + outs] + [meta.data_ptr(), *ints]
+            k1 = kernel_ms(lambda: kernels.launch("smooth", *p1))
+            ins, ints, outs = fused_solver._solver_launch_args(
+                *a2, kw2["lim_tab"], kw2["niter"], 16)
+            p2 = [t.data_ptr() for t in ins + outs] + list(ints)
+            k2 = kernel_ms(lambda: kernels.launch("solver", *p2))
+        for row, err, k, t, tr, (bms, by) in (
+                (rows[0], err1, k1, t1, tr1, bb1),
+                (rows[1], err2, k2, t2, tr2, bb2)):
+            row.update({f"ms_batch{B}": k, f"wrapper_ms_batch{B}": t,
+                        f"plain_ms_batch{B}": tr, f"bound_ms_batch{B}": bms,
+                        f"bound_by_batch{B}": by,
+                        f"max_rel_err_batch{B}": err})
+    # timing launches are not main-path launches
+    fused_smooth.LAUNCHES, fused_solver.LAUNCHES = n0, n1
+    out["kernels_at_batch_4_and_8"] = {"smooth": rows[0], "solver": rows[1]}
+    return out, rows
+
+
 def run_serving(device="cuda", gpu="cpu", ckpt=None,
                 planners=SERVE_PLANNERS, requests=SERVE_REQUESTS,
                 nsample=64, horizon=17, mpc_seconds=MPC_IN_ENV_SECONDS,
+                mpc_ilqg_seconds=MPC_IN_ENV_ILQG_SECONDS,
                 eval_episodes=EVAL_EPISODES, eval_steps=EVAL_STEPS):
     """The serving slice's phases: `serving` (each planner behind the
-    TCP server, the root-height search), `mpc_in_env` and `evaluate`
-    (on `ckpt`, rl_train's checkpoint, removed afterwards), each with
-    its env steps held against the twins (`env_steps_vs_twins`: every
-    MPC_CHECK_EVERY-th step of mpc_in_env at batch 1, every
-    EVAL_CHECK_EVERY-th of evaluate at its episodes' batch), and
-    `swimmer_agent`; then
+    TCP server, the root-height search), `serving_ilqg` (`ilqg_checks`),
+    `mpc_in_env_ilqg` (the default planner), `mpc_in_env` (sampling)
+    and `evaluate` (on `ckpt`, rl_train's checkpoint, removed
+    afterwards), each MPC and evaluate run with its env steps held
+    against the twins (`env_steps_vs_twins`: every MPC_CHECK_EVERY-th
+    step of mpc_in_env at batch 1, every EVAL_CHECK_EVERY-th of evaluate
+    at its episodes' batch), and `swimmer_agent`; then
     `serving_walls`, the host wall time of each. Returns the launches
     of B1, B2 and B3 on these paths for the kernel table."""
     import shutil
@@ -1913,6 +2165,30 @@ def run_serving(device="cuda", gpu="cpu", ckpt=None,
     height = root_height_check(m, obs, device, timer)
     walls["root_height_s"] = time.perf_counter() - t0
     log("serving", gpu=gpu, planners=per, **height)
+    t0 = time.perf_counter()
+    ilqg, ilqg_rows = ilqg_checks(m, obs, device, timer, horizon)
+    walls["serving_ilqg_checks_s"] = time.perf_counter() - t0
+    log("serving_ilqg", gpu=gpu, **ilqg)
+
+    counters_zero()
+    t0 = time.perf_counter()
+    with record([E], "env_step", MPC_CHECK_EVERY) as rec:
+        out = mpc_in_env.run(seconds=mpc_ilqg_seconds,
+                             randomization_factor=MPC_IN_ENV_RF,
+                             device=device, verbose=False)
+    wall = time.perf_counter() - t0
+    mie_ilqg = counters()
+    t0 = time.perf_counter()
+    mie_check = env_steps_vs_twins(rec.calls, device)
+    walls.update(mpc_in_env_ilqg_s=wall,
+                 mpc_in_env_ilqg_check_s=time.perf_counter() - t0)
+    log("mpc_in_env_ilqg", gpu=gpu, seconds=mpc_ilqg_seconds,
+        rf=MPC_IN_ENV_RF, planner="ilqg", wall_s=wall, launches=mie_ilqg,
+        env_steps_vs_twins=mie_check, **out)
+    assert out["steps"] > 0 and np.isfinite(out["mean_reward"]), out
+    assert rec.n == out["steps"], (rec.n, out)
+    if device != "cpu":
+        assert mie_ilqg["smooth"] > 0 and mie_ilqg["solver"] > 0, mie_ilqg
 
     counters_zero()
     t0 = time.perf_counter()
@@ -1968,12 +2244,18 @@ def run_serving(device="cuda", gpu="cpu", ckpt=None,
     log("swimmer_agent", gpu=gpu, **sw)
     log("serving_walls", **walls, total_s=time.perf_counter() - t_all)
     serve = per[0]["launches_per_request"]
+    serve_ilqg = next(p for p in per if p["planner"] == "ilqg")[
+        "launches_per_request"]
     return ({"launches_serving_per_request": serve["smooth"],
+             "launches_ilqg_per_request": serve_ilqg["smooth"],
              "launches_mpc_in_env": mie["smooth"],
-             "launches_evaluate": ev["smooth"]},
+             "launches_mpc_in_env_ilqg": mie_ilqg["smooth"],
+             "launches_evaluate": ev["smooth"], **ilqg_rows[0]},
             {"launches_serving_per_request": serve["solver"],
+             "launches_ilqg_per_request": serve_ilqg["solver"],
              "launches_mpc_in_env": mie["solver"],
-             "launches_evaluate": ev["solver"]},
+             "launches_mpc_in_env_ilqg": mie_ilqg["solver"],
+             "launches_evaluate": ev["solver"], **ilqg_rows[1]},
             {"launches_swimmer_agent": sw["launches"]["euler"]})
 
 
@@ -1983,6 +2265,8 @@ def main():
         sys.exit(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # no TF32 in the derivative path's products and the Riccati recursion
+    assert torch.get_float32_matmul_precision() == "highest"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2021,6 +2305,7 @@ def main():
         smooth_occupancy_per_env_packs=smooth_occ_env,
         solver_occupancy=occupancy,
         euler_occupancy=euler_occ,
+        float32_matmul_precision=torch.get_float32_matmul_precision(),
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)

@@ -27,9 +27,13 @@ and B2 on the card) and their arithmetic. Randomness comes from one
 `torch.Generator` seeded from `seed`; `planner_step(noise=...)` takes
 the candidates' standard normals instead.
 
-Planners: "sampling", "cem" and "mppi". "ilqg", the JAX package's
-default, needs derivatives through the step (ROADMAP item 10) and
-raises NotImplementedError until then.
+Planners: "ilqg" (the default, as in the JAX package), "sampling",
+"cem" and "mppi". iLQG's rollouts (its nominal search at batch 4 and
+line search at batch 8) run through `step`, and so through B1 and B2
+on the card; its derivatives run through the plain `step(ift=True)`
+(planners/derivatives.py). Its policy is a feedback policy, so its
+action reads the state; `get_action(nominal_action=True)` drops the
+feedback term.
 """
 
 from __future__ import annotations
@@ -43,9 +47,9 @@ import torch
 from .mpc import make_plan_model
 from .physics.model import Model, State, make_state
 from .physics.step import forward, step
-from .planners import (CEMConfig, MPPIConfig, SamplingConfig, cem_init,
-                       cem_plan, init_policy, mppi_plan, policy_action,
-                       sampling_plan)
+from .planners import (CEMConfig, ILQGConfig, MPPIConfig, SamplingConfig,
+                       cem_init, cem_plan, ilqg_action, ilqg_init, ilqg_plan,
+                       init_policy, mppi_plan, policy_action, sampling_plan)
 from .planners.derivatives import _light_info
 from .tasks.base import cost_terms
 
@@ -61,11 +65,6 @@ class Agent:
         if planner not in PLANNERS:
             raise ValueError(f"unknown planner {planner!r}; "
                              f"options: {PLANNERS}")
-        if planner == "ilqg":
-            raise NotImplementedError(
-                "the iLQG planner needs derivatives through the step, "
-                "which come with ROADMAP item 10 of the port; pick "
-                "planner='sampling', 'cem' or 'mppi'")
         if isinstance(task, str):
             # Init by task id (grpc Init task_id, agent.proto:21)
             from .tasks.registry import get_task
@@ -79,13 +78,20 @@ class Agent:
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(seed)
         self._last_info = None
-        config = {"sampling": SamplingConfig, "cem": CEMConfig,
-                  "mppi": MPPIConfig}[planner]
-        self.cfg = config(nsample=nsample, horizon=horizon)
+        if planner == "ilqg":
+            self.cfg = ILQGConfig(horizon=horizon)
+        else:
+            config = {"sampling": SamplingConfig, "cem": CEMConfig,
+                      "mppi": MPPIConfig}[planner]
+            self.cfg = config(nsample=nsample, horizon=horizon)
         self._reset_planner()
 
     def _reset_planner(self):
-        """The nominal policy (and CEM's std) at their initial values."""
+        """The planner state at its initial value: iLQG's zero policy
+        anchored at the state, or the nominal spline (and CEM's std)."""
+        if self.planner == "ilqg":
+            self.pstate = ilqg_init(self.plan_model, self.cfg, self.state)
+            return
         self.pstate = init_policy(self.model, self.cfg.nknots)
         if self.planner == "cem":
             self.cem_state = cem_init(self.model, self.cfg)
@@ -126,9 +132,13 @@ class Agent:
     def planner_step(self, noise: Optional[torch.Tensor] = None) -> float:
         """One planner iteration against the current state
         (Agent::PlanIteration). `noise` (nsample, nknots, nu) standard
-        normal replaces the draw from the agent's generator."""
+        normal replaces the draw from the agent's generator (iLQG draws
+        nothing)."""
         kw = dict(generator=self.generator, noise=noise)
-        if self.planner == "cem":
+        if self.planner == "ilqg":
+            self.pstate, info = ilqg_plan(self.plan_model, self.task,
+                                          self.cfg, self.pstate, self.state)
+        elif self.planner == "cem":
             self.pstate, self.cem_state, info = cem_plan(
                 self.plan_model, self.task, self.cfg, self.pstate,
                 self.cem_state, self.state, **kw)
@@ -139,8 +149,15 @@ class Agent:
         self._last_info = info
         return float(info.best_return)
 
-    def _policy_action(self, t) -> torch.Tensor:
-        """The policy's action (1, nu) at times t (1,)."""
+    def _policy_action(self, s: State, t, nominal: bool = False
+                       ) -> torch.Tensor:
+        """The policy's action (1, nu) at state s and times t (1,);
+        `nominal` drops iLQG's feedback term (its k_scale set to 0)."""
+        if self.planner == "ilqg":
+            pol = self.pstate.policy
+            if nominal:
+                pol = pol.replace(k_scale=torch.zeros_like(pol.k_scale))
+            return ilqg_action(self.model, pol, s.qpos, s.qvel, t)
         return policy_action(self.model, self.pstate, t, self.cfg.order)
 
     def _sim_step(self, s: State, u: torch.Tensor):
@@ -151,25 +168,26 @@ class Agent:
         """The policy's action (nu,) at `time` (default: the state's).
         With `averaging_duration` > 0, the mean action over that long a
         sim rollout from the state (grpc_agent_util.cc:166-197).
-        `nominal_action` skips a feedback term, which the sampling
-        planners do not have."""
+        `nominal_action` skips iLQG's feedback term K·dx (the proto's
+        nominal_action flag); the sampling planners have none."""
         t = self.state.time if time is None else self._batch1(time, 1)[0]
         if averaging_duration > 0:
             n = max(1, int(round(float(averaging_duration)
                                  / float(self.model.dt))))
             s, acts = self.state, []
             for _ in range(n):
-                u = self._policy_action(t)
+                u = self._policy_action(s, t, nominal_action)
                 acts.append(u[0])
                 s, _ = self._sim_step(s, u)
                 t = s.time
             return torch.stack(acts).mean(dim=0).cpu().numpy()
-        return self._policy_action(t)[0].cpu().numpy()
+        return self._policy_action(self.state, t,
+                                   nominal_action)[0].cpu().numpy()
 
     def step(self) -> np.ndarray:
         """The policy's action, then one sim step and the task
         transition (the Step RPC); returns the action (nu,)."""
-        u = self._policy_action(self.state.time)
+        u = self._policy_action(self.state, self.state.time)
         self.state, _ = self._sim_step(self.state, u)
         self._transition()
         return u[0].cpu().numpy()
@@ -240,7 +258,7 @@ class Agent:
         u0 = torch.zeros((1, self.model.nu), dtype=self.model.dtype,
                          device=self.model.device)
         info = forward(self.model, self.state, u0)[3]
-        u = self._policy_action(self.state.time)
+        u = self._policy_action(self.state, self.state.time)
         return self.task.residual(self.model, self.state, info,
                                   u)[0].cpu().numpy()
 
@@ -251,5 +269,11 @@ class Agent:
                 for i, t in enumerate(self.task.terms)}
 
     def best_trajectory(self):
+        if self.planner == "ilqg":
+            p = self.pstate.policy
+            return dict(times=p.times.cpu().numpy(),
+                        qpos=p.qpos_nom.cpu().numpy(),
+                        qvel=p.qvel_nom.cpu().numpy(),
+                        actions=p.u_nom.cpu().numpy())
         return dict(times=self.pstate.times.cpu().numpy(),
                     knots=self.pstate.values.cpu().numpy())

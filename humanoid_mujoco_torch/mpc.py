@@ -18,6 +18,7 @@ import torch
 
 from .physics.model import Model, State
 from .physics.step import step
+from .planners.ilqg import ilqg_action
 from .planners.policy import SplinePolicy, policy_action
 from .tasks.base import Task, cost_value
 
@@ -42,6 +43,12 @@ def spline_action_fn(order: int):
     def fn(m, policy, s):
         return policy_action(m, policy, s.time, order)
     return fn
+
+
+def ilqg_action_fn(m, policy, s):
+    """action_fn for iLQG feedback policies: closes the K(t) loop at the
+    sim rate, like the reference's physics thread (app.cc:90-93)."""
+    return ilqg_action(m, policy, s.qpos, s.qvel, s.time)
 
 
 def mpc_rollout(sim_model: Model, plan_model: Model, task: Task,

@@ -18,7 +18,7 @@ seeded from `seed`; the agent draws from its own.
 
 Usage:
   python -m humanoid_mujoco_torch.mpc_in_env --seconds 5 --rand 0.1 \\
-      --planner sampling
+      [--planner ilqg|sampling|cem|mppi] [--device cpu]
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ def main(argv=None):
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--rand", type=float, default=0.0)
     ap.add_argument("--planner", default="ilqg",
-                    help="sampling, cem or mppi (ilqg: ROADMAP item 10)")
+                    help="ilqg, sampling, cem or mppi")
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--horizon", type=int, default=17)
     ap.add_argument("--seed", type=int, default=0)

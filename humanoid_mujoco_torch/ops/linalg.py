@@ -17,19 +17,19 @@ def chol_factor(A: torch.Tensor) -> torch.Tensor:
 
     The pivot is clamped at `_JITTER` so near-singular inputs degrade
     instead of producing NaNs (the step's divergence guard handles them).
+    A loop over columns, each computed from row j down (seven batched
+    ops a column).
     """
     n = A.shape[-1]
+    zero = A.new_zeros(A.shape[:-1])
     cols = []
-    rows = torch.arange(n, device=A.device)
     for j in range(n):
-        s = A[..., :, j]
+        s = A[..., j:, j]
         if j:
             Lp = torch.stack(cols, dim=-1)                  # (..., n, j)
-            s = s - (Lp @ Lp[..., j, :, None])[..., 0]
-        d = torch.sqrt(torch.clamp(s[..., j], min=_JITTER))
-        col = torch.where(rows > j, s / d[..., None], torch.zeros_like(s))
-        col = torch.where(rows == j, d[..., None], col)
-        cols.append(col)
+            s = s - (Lp[..., j:, :] @ Lp[..., j, :, None])[..., 0]
+        d = torch.sqrt(torch.clamp(s[..., :1], min=_JITTER))
+        cols.append(torch.cat([zero[..., :j], d, s[..., 1:] / d], dim=-1))
     return torch.stack(cols, dim=-1)
 
 
@@ -42,6 +42,16 @@ def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x[..., 0] if vec else x
 
 
+def mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product, (..., n, m) x (..., m) -> (..., n)."""
+    return (A @ v[..., None])[..., 0]
+
+
 def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve SPD A x = b (factor + solve)."""
     return chol_solve(chol_factor(A), b)
+
+
+def symmetrize(A: torch.Tensor) -> torch.Tensor:
+    """(A + Aᵀ) / 2 over the last two axes."""
+    return 0.5 * (A + A.transpose(-1, -2))

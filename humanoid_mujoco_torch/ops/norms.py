@@ -1,8 +1,8 @@
-"""Scalar penalty norms (values only).
+"""Scalar penalty norms with analytic value, gradient and Hessian.
 
-Counterpart of the value half of humanoid_mujoco_tpu/ops/norms.py (the
-reference's mjpc/norm.cc shapes, same enum numbering). Each norm maps
-x (..., n) to (...). Gradients and Hessians come with a later slice.
+Counterpart of humanoid_mujoco_tpu/ops/norms.py (the reference's
+mjpc/norm.cc shapes, same enum numbering). Each norm maps x (..., n) to
+(...), its gradient is (..., n) and its Hessian (..., n, n).
 """
 
 from __future__ import annotations
@@ -88,3 +88,87 @@ def norm_value(x: torch.Tensor, norm_type: int, p=0.0, q=0.0
     p = torch.as_tensor(p, dtype=x.dtype, device=x.device)
     q = torch.as_tensor(q, dtype=x.dtype, device=x.device)
     return _NORM_FNS[NormType(norm_type)](x, p, q)
+
+
+def norm_grad(x: torch.Tensor, norm_type: int, p=0.0, q=0.0):
+    """(value (...), gradient (..., n)) in the analytic forms."""
+    t = NormType(norm_type)
+    p = torch.as_tensor(p, dtype=x.dtype, device=x.device)
+    q = torch.as_tensor(q, dtype=x.dtype, device=x.device)
+    if t == NormType.NULL:
+        return _null(x, p, q), torch.ones_like(x)
+    if t == NormType.QUADRATIC:
+        return _quadratic(x, p, q), x
+    if t == NormType.L22:
+        cs = torch.clamp(torch.sum(x * x, dim=-1, keepdim=True), min=_MINVAL)
+        a = torch.pow(cs, q / 2) + torch.pow(p, q)
+        s = torch.pow(a, 1.0 / q)
+        return s[..., 0] - p, s / a * torch.pow(cs, q / 2 - 1) * x
+    if t == NormType.L2:
+        s = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True) + p * p)
+        return s[..., 0] - p, x / torch.clamp(s, min=_MINVAL)
+    if t == NormType.COSH:
+        return _cosh(x, p, q), p * torch.sinh(x / p)
+    if t == NormType.POWER_LOSS:
+        a = torch.abs(x) + _MINVAL
+        return _power(x, p, q), torch.sign(x) * p * torch.pow(a, p - 1)
+    if t == NormType.SMOOTH_ABS:
+        s = torch.sqrt(x * x + p * p)
+        return torch.sum(s - p, dim=-1), x / torch.clamp(s, min=_MINVAL)
+    if t == NormType.SMOOTH_ABS2:
+        a = torch.abs(x) + _MINVAL
+        e = torch.pow(a, q) + torch.pow(p, q)
+        s = torch.pow(e, 1.0 / q)
+        return (torch.sum(s - p, dim=-1),
+                s * torch.pow(a, q - 2) / e * x)
+    # RECTIFY
+    sig = torch.sigmoid(x / torch.clamp(p, min=_MINVAL))
+    return _rectify(x, p, q), torch.where(p > 0, sig, (x > 0).to(x.dtype))
+
+
+def norm_hess(x: torch.Tensor, norm_type: int, p=0.0, q=0.0):
+    """(value (...), gradient (..., n), Hessian (..., n, n))."""
+    t = NormType(norm_type)
+    y, g = norm_grad(x, norm_type, p, q)
+    p = torch.as_tensor(p, dtype=x.dtype, device=x.device)
+    q = torch.as_tensor(q, dtype=x.dtype, device=x.device)
+    n = x.shape[-1]
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+
+    def diag(h):
+        return eye * h[..., None, :]
+    if t == NormType.NULL:
+        H = x.new_zeros(x.shape + (n,))
+    elif t == NormType.QUADRATIC:
+        H = eye.expand(x.shape + (n,))
+    elif t == NormType.L22:
+        cs = torch.clamp(torch.sum(x * x, dim=-1, keepdim=True), min=_MINVAL)
+        a = torch.pow(cs, q / 2) + torch.pow(p, q)
+        s = torch.pow(a, 1.0 / q)
+        d = torch.pow(cs, q / 2 - 1)
+        b = (s / a * d)[..., None]
+        cc = ((1 - q) * d / a + (q - 2) / cs)[..., None]
+        H = b * (eye + x[..., :, None] * x[..., None, :] * cc)
+    elif t == NormType.L2:
+        s = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True) + p * p)
+        H = (eye - g[..., :, None] * g[..., None, :]) / torch.clamp(
+            s[..., None], min=_MINVAL)
+    elif t == NormType.COSH:
+        H = diag(torch.cosh(x / p))
+    elif t == NormType.POWER_LOSS:
+        a = torch.abs(x) + _MINVAL
+        H = diag((p - 1) * p * torch.pow(a, p - 2))
+    elif t == NormType.SMOOTH_ABS:
+        s = torch.clamp(torch.sqrt(x * x + p * p), min=_MINVAL)
+        H = diag((1 - g * g) / s)
+    elif t == NormType.SMOOTH_ABS2:
+        a = torch.abs(x) + _MINVAL
+        d = torch.pow(a, q)
+        e = d + torch.pow(p, q)
+        cc = torch.pow(e, 1.0 / q) * torch.pow(a, q - 2) / e
+        H = diag(cc * (q - 1) * (1 - d / e))
+    else:  # RECTIFY
+        sig = torch.sigmoid(x / torch.clamp(p, min=_MINVAL))
+        H = diag(torch.where(p > 0, sig * (1 - sig) / torch.clamp(
+            p, min=_MINVAL), torch.zeros_like(x)))
+    return y, g, H

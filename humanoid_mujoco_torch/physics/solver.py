@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import linalg
+from ..ops.linalg import mv
 from .collision import Contacts, tangent_frame
 from .engine import Kin
 from .model import JointType, Model
@@ -228,9 +229,11 @@ def ls_grid(ls_iter: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(g, dtype=dtype, device=device)
 
 
+
 def newton_solve(M: torch.Tensor, Mchol: torch.Tensor,
                  qfrc_smooth: torch.Tensor, efc: Efc, niter: int = 8,
-                 ls_iter: int = 16, trace: list | None = None):
+                 ls_iter: int = 16, trace: list | None = None,
+                 ift: bool = False):
     """Minimize the soft-constraint objective over qacc.
 
     Returns (qacc, efc_force, qfrc_constraint), batch-leading. Each
@@ -238,6 +241,14 @@ def newton_solve(M: torch.Tensor, Mchol: torch.Tensor,
     direction, then the line search on the fixed grid with linear
     interpolation of the sign crossing of the (monotone) dphi. A `trace`
     list receives each iteration's (r, J p), both (B, ne).
+
+    `ift=True`, the implicit-function derivative (JAX solver.py:490-
+    500): the iterations run on detached inputs, then one Newton step
+    that carries derivatives is taken at the converged, frozen active
+    set. Its value moves only by the solver's residual step; its
+    derivative is the exact sensitivity -H⁻¹ ∂g/∂θ at that active set,
+    not that of a truncated iteration and line search. Forward-mode
+    tangents (planners/derivatives.py) pass through this step only.
     """
     a_s = linalg.chol_solve(Mchol, qfrc_smooth)
     J, aref, D = efc.J, efc.aref, efc.D
@@ -245,10 +256,25 @@ def newton_solve(M: torch.Tensor, Mchol: torch.Tensor,
         return a_s, aref, torch.zeros_like(qfrc_smooth)
     Jt = J.transpose(-1, -2)
     grid = ls_grid(ls_iter, M.dtype, M.device)
+    if ift:
+        Md, a_sd, Jd, arefd, Dd = (t.detach() for t in (M, a_s, J, aref, D))
+        xh = _newton_iterations(Md, a_sd, Jd, arefd, Dd, niter, grid, trace)
+        act = (mv(Jd, xh) - arefd < 0).to(D.dtype)
+        Da = D * act
+        g = mv(M, xh - a_s) + mv(Jt, Da * (mv(J, xh) - aref))
+        H = M + Jt @ (J * Da[..., None])
+        x = xh - linalg.chol_solve(linalg.chol_factor(H), g)
+    else:
+        x = _newton_iterations(M, a_s, J, aref, D, niter, grid, trace)
+    r = mv(J, x) - aref
+    f = torch.clamp(-D * r, min=0.0) * (r < 0).to(D.dtype)
+    return x, f, mv(Jt, f)
 
-    def mv(A, v):
-        return (A @ v[..., None])[..., 0]
 
+def _newton_iterations(M, a_s, J, aref, D, niter, grid, trace):
+    """`niter` Newton iterations with the grid line search from a_s."""
+    Jt = J.transpose(-1, -2)
+    ls_iter = grid.shape[0]
     x = a_s
     for _ in range(niter):
         r = mv(J, x) - aref
@@ -277,6 +303,4 @@ def newton_solve(M: torch.Tensor, Mchol: torch.Tensor,
         alpha = torch.where(neg[:, -1], grid[-1], a_lo + frac * (a_hi - a_lo))
         alpha = torch.where(neg[:, 0], alpha, torch.zeros_like(alpha))
         x = x + alpha[:, None] * p
-    r = mv(J, x) - aref
-    f = torch.clamp(-D * r, min=0.0) * (r < 0).to(D.dtype)
-    return x, f, mv(Jt, f)
+    return x

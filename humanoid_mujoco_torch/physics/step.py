@@ -23,8 +23,9 @@ come with slice 4 of the port and raise.
 StepInfo) without the Euler update, plain PyTorch on every device as in
 the JAX package (it has no kernel there): the smooth stage, collision,
 top-k contact selection when 0 < max_contacts < ncon, the rows, their
-Newton solve on M. Its first user is the serving path's root-height
-search (serving/state_estimation.py).
+Newton solve on M. Its users are the serving path's root-height search
+(serving/state_estimation.py) and, with `ift=True`, the derivative path
+of the iLQG planner (`step(ift=True)`, planners/derivatives.py).
 
 Divergence guard: `StepInfo.diverged` flags non-finite or exploding
 states, and `step` freezes such an environment (qpos kept, qvel zeroed)
@@ -117,11 +118,10 @@ def forward(m: Model, state: State, ctrl: torch.Tensor,
     is plain XLA everywhere: with 0 < max_contacts < ncon it solves only
     the max_contacts slots with the smallest gaps (the humanoid: 32 of
     67), which the kernels' selection-free step does not.
+
+    `ift=True` takes the Newton solve's implicit-function derivative
+    (solver.newton_solve): the path of derivative callers.
     """
-    if ift:
-        raise NotImplementedError(
-            "forward(ift=True), the implicit-function derivative path, "
-            "comes with slice 5 of the port")
     qpos, qvel = state.qpos, state.qvel
     if qpos.dtype != m.dtype or qpos.device != m.device:
         raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
@@ -146,7 +146,7 @@ def forward(m: Model, state: State, ctrl: torch.Tensor,
             else make_rows(m, qpos))
     efc = finish_efc(rows, qvel, Mchol)
     qacc, efc_f, qfrc_constraint = newton_solve(M, Mchol, qfrc_smooth, efc,
-                                                niter=solver_iters)
+                                                niter=solver_iters, ift=ift)
     nlim = len(m.struct_static("lim_tab", lambda: limit_rows_static(m)))
     cf = _contact_forces(efc_f, nlim, sel, m.ncon)
     qfrc_total = qfrc_smooth + qfrc_constraint
@@ -162,13 +162,9 @@ def forward(m: Model, state: State, ctrl: torch.Tensor,
     return qacc, qfrc_total, M, info
 
 
-def _check(m: Model, qpos: torch.Tensor, ift: bool) -> bool:
+def _check(m: Model, qpos: torch.Tensor) -> bool:
     """Validate the call; True for B1's family, False for the explicit-
     row path."""
-    if ift:
-        raise NotImplementedError(
-            "step(ift=True), the implicit-function derivative path, comes "
-            "with slice 5 of the port")
     if qpos.dtype != m.dtype or qpos.device != m.device:
         raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
                          f"match the model ({m.dtype}, {m.device})")
@@ -193,11 +189,24 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
          xfrc: Optional[torch.Tensor] = None, solver_iters: int = 8,
          ift: bool = False) -> Tuple[State, StepInfo]:
     """Semi-implicit Euler with implicit joint damping (mj_Euler analog)
-    on a batch: state (B, ...), ctrl (B, nu), xfrc (B, nbody, 6)."""
-    kernel_family = _check(m, state.qpos, ift)
+    on a batch: state (B, ...), ctrl (B, nu), xfrc (B, nbody, 6).
+
+    `ift=True` is the derivative callers' step (JAX step.py:230-240):
+    `forward` with the implicit-function derivative of its Newton solve
+    (top-k contact selection where the model has one), then the
+    implicit-damping update (M + h·diag(damping)) dv = h·qfrc_total.
+    It is plain PyTorch on every device by design, as the JAX ift path
+    never enters a Pallas kernel: the kernels serve rollouts only, and
+    forward-mode tangents run through the plain twin.
+    """
     h = m.dt
     qpos, qvel = state.qpos, state.qvel
-    if kernel_family:
+    if ift:
+        _, qfrc_total, M, info = forward(m, state, ctrl, xfrc, solver_iters,
+                                         ift=True)
+        MhD = M + torch.diag_embed(h * m.dof_damping)
+        qvel_new = qvel + h * linalg.solve_psd(MhD, qfrc_total)
+    elif _check(m, qpos):
         (M, qfrc_smooth, cdof, rel, nrm, dist, mu3, kc, bc, dc,
          lpos, kl, bl, dl, xpos, xquat, xipos, bcv, sitex, anchor,
          com_vel, actf) = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
@@ -206,6 +215,12 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
             M, qfrc_smooth, qvel, cdof, rel, nrm, dist, mu3,
             contact_dmask(m), kc, bc, dc, lpos, kl, bl, dl,
             h * m.dof_damping, h, lim_tab=lim_tab, niter=solver_iters)
+        info = StepInfo(
+            xpos=xpos, xquat=xquat, xipos=xipos, site_xpos=sitex,
+            com=anchor, com_vel=com_vel, body_com_vel=bcv,
+            contact_dist=dist, contact_force=cf, qacc=qacc,
+            actuator_force=actf, qfrc_total=qfrc_smooth + qfrc_constraint,
+            diverged=None)
     else:
         kin, vel, M, qfrc_smooth = engine.prepare_smooth(m, qpos, qvel, ctrl,
                                                          xfrc)
@@ -214,22 +229,21 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
             fused_solver.solve_constraints_euler(
                 M, qfrc_smooth, qvel, rows.J, rows.pos, rows.k, rows.b,
                 rows.d, h * m.dof_damping, h, niter=solver_iters)
-        xpos, xquat, xipos = kin.xpos, kin.xquat, kin.xipos
-        sitex, anchor, com_vel = kin.site_xpos, kin.anchor, vel.com_vel
-        bcv = engine.body_com_velocities(kin, vel)
-        dist = cf = qpos.new_zeros((qpos.shape[0], 0))
-        actf = engine.actuator_force(m, qpos, qvel, ctrl)
+        none = qpos.new_zeros((qpos.shape[0], 0))
+        info = StepInfo(
+            xpos=kin.xpos, xquat=kin.xquat, xipos=kin.xipos,
+            site_xpos=kin.site_xpos, com=kin.anchor, com_vel=vel.com_vel,
+            body_com_vel=engine.body_com_velocities(kin, vel),
+            contact_dist=none, contact_force=none, qacc=qacc,
+            actuator_force=engine.actuator_force(m, qpos, qvel, ctrl),
+            qfrc_total=qfrc_smooth + qfrc_constraint, diverged=None)
     qpos_new = integrate_pos(m, qpos, qvel_new, h)
-    diverged = (~torch.isfinite(qacc).all(dim=-1)
+    diverged = (~torch.isfinite(info.qacc).all(dim=-1)
                 | (qvel.abs().amax(dim=-1) > _QVEL_LIMIT)
                 | ~torch.isfinite(qvel_new).all(dim=-1))
     # freeze diverged environments so downstream stays finite
     qpos_new = torch.where(diverged[:, None], qpos, qpos_new)
     qvel_new = torch.where(diverged[:, None], torch.zeros_like(qvel_new),
                            qvel_new)
-    info = StepInfo(
-        xpos=xpos, xquat=xquat, xipos=xipos, site_xpos=sitex, com=anchor,
-        com_vel=com_vel, body_com_vel=bcv, contact_dist=dist,
-        contact_force=cf, qacc=qacc, actuator_force=actf,
-        qfrc_total=qfrc_smooth + qfrc_constraint, diverged=diverged)
-    return State(qpos=qpos_new, qvel=qvel_new, time=state.time + h), info
+    return (State(qpos=qpos_new, qvel=qvel_new, time=state.time + h),
+            dataclasses.replace(info, diverged=diverged))

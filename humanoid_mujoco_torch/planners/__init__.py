@@ -1,4 +1,6 @@
 from .cem import CEMConfig, CEMState, cem_init, cem_plan
+from .ilqg import (ILQGConfig, ILQGInfo, ILQGPolicy, ILQGState, ilqg_action,
+                   ilqg_init, ilqg_plan, ilqg_state_from_numpy)
 from .mppi import MPPIConfig, mppi_plan
 from .policy import (SplinePolicy, init_policy, knot_times, policy_action,
                      resample_policy)
@@ -8,4 +10,6 @@ from .sampling import (PlanInfo, SamplingConfig, sample_candidates,
 __all__ = ["SplinePolicy", "init_policy", "knot_times", "policy_action",
            "resample_policy", "PlanInfo", "SamplingConfig",
            "sample_candidates", "sampling_plan", "CEMConfig", "CEMState",
-           "cem_init", "cem_plan", "MPPIConfig", "mppi_plan"]
+           "cem_init", "cem_plan", "MPPIConfig", "mppi_plan", "ILQGConfig",
+           "ILQGInfo", "ILQGPolicy", "ILQGState", "ilqg_action", "ilqg_init",
+           "ilqg_plan", "ilqg_state_from_numpy"]

@@ -17,13 +17,13 @@ Per request: re-estimate the full state (the root-height search), run
 
 Run it with
 
-  python -m humanoid_mujoco_torch.serving.server --planner sampling
+  python -m humanoid_mujoco_torch.serving.server [--planner sampling]
 
-(`--planner` defaults to the JAX package's "ilqg", which raises until
-ROADMAP item 10; `--device cpu` runs the plain PyTorch path). The
-plan-while-acting mode (`async_mode=True`, the native runtime, ROADMAP
-item 12) and the EKF in the loop (`filter="ekf"`, the estimators,
-ROADMAP item 11) are not ported yet and raise.
+(`--planner` defaults to "ilqg", as in the JAX package; `--device cpu`
+runs the plain PyTorch path). The plan-while-acting mode
+(`async_mode=True`, the native runtime, ROADMAP item 12) and the EKF in
+the loop (`filter="ekf"`, the estimators, ROADMAP item 11) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -175,7 +175,7 @@ def serve(planner: str = "ilqg", port: int = DEFAULT_PORT, device=None,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--planner", default="ilqg",
-                    help="sampling, cem or mppi (ilqg: ROADMAP item 10)")
+                    help="ilqg, sampling, cem or mppi")
     ap.add_argument("--port", type=int, default=DEFAULT_PORT)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)

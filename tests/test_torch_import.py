@@ -44,13 +44,15 @@ print(json.dumps([names, bad]))
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
     names, bad = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 42, out.stdout
+    assert len(names) >= 47, out.stdout
     for mod in ("mpc", "tasks.registry", "tasks.swimmer", "rl.rewards",
                 "rl.env", "rl.networks", "rl.curriculum", "rl.sac",
                 "rl.ppo", "rl.train", "agent", "mpc_in_env",
                 "planners.cem", "planners.mppi", "planners.derivatives",
                 "serving", "serving.server", "serving.state_estimation",
-                "rl.evaluate"):
+                "rl.evaluate", "physics.tangent", "ops.boxqp",
+                "planners.ilqg", "planners.terminal",
+                "planners.tangent_interp"):
         assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
 

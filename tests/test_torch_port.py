@@ -23,10 +23,11 @@ program in interpret mode, about 30 s; the eager kernel-path step, about
 compiles outside the GIL, and JAX keeps `disable_jit` per thread. All
 are cached, so the checks that read them reuse the result. The RL
 slice's three (the env's reset and steps with B1's per-env reference,
-one SAC and one PPO train step) and the serving slice's four (physics,
-planners, agent, evaluate) are built in seven processes: each is a jit
-trace of the humanoid step, Python that holds the GIL, so threads would
-run them one after another.
+one SAC and one PPO train step), the serving slice's four (physics,
+planners, agent, evaluate) and the iLQG slice's two (the derivative
+path, the plan) are built in nine processes: each is a jit trace of
+the humanoid step, Python that holds the GIL, so threads would run them
+one after another.
 """
 
 import multiprocessing
@@ -36,6 +37,7 @@ import torch
 
 import test_torch_constraints
 import test_torch_fused_smooth
+import test_torch_ilqg
 import test_torch_import
 import test_torch_math
 import test_torch_model
@@ -51,10 +53,13 @@ torch.set_num_threads(1)
 def test_port_matches_jax():
     names = ("env", "sac", "ppo")
     serving_names = test_torch_serving.NAMES
+    ilqg_names = test_torch_ilqg.NAMES
     with ProcessPoolExecutor(
-            max_workers=len(names) + len(serving_names),
+            max_workers=len(names) + len(serving_names) + len(ilqg_names),
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
+        ilqg = [procs.submit(test_torch_ilqg.reference, n)
+                for n in ilqg_names]
         serving = [procs.submit(test_torch_serving.reference, n)
                    for n in serving_names]
         rl = [procs.submit(test_torch_rl.reference, n) for n in names]
@@ -77,5 +82,7 @@ def test_port_matches_jax():
         test_torch_serving.run_local_checks()
         test_torch_serving.run_reference_checks(
             {n: f.result() for n, f in zip(serving_names, serving)})
+        test_torch_ilqg.run_checks(
+            {n: f.result() for n, f in zip(ilqg_names, ilqg)})
         swimmer.result()
     test_torch_swimmer.run_checks()

@@ -25,7 +25,8 @@ value:
   sim steps, `step`, the cost-weight, task-parameter, residual and
   cost-term verbs, `set_anything` on the task, `best_trajectory`, at
   1e-9; `set_anything` on the model (a new Model, the old leaves kept),
-  the "ilqg" and unknown-planner errors;
+  the default planner ("ilqg", held to JAX in tests/test_torch_ilqg.py)
+  and the unknown-planner error;
 - `MPCServer.handle` over `socket.socketpair()` (timeouts 10 s): the
   round trip against `compute_action` of a twin agent, a malformed
   request's error reply, two coalesced requests, position mode; the
@@ -37,9 +38,10 @@ value:
   as tests/test_torch_rl.py runs it) at 1e-6; `evaluate` end to end on a
   port checkpoint (eval.csv, traj files);
 - a 3-tick `mpc_in_env.run` on the CPU, which returns the JAX `run`'s
-  keys. Its parts are held to JAX above; the loop as a whole is not
-  compared, since the port's env draws and torque noise come from torch
-  generators and the JAX package's from its keys.
+  keys, and a 1-tick run with the default planner, iLQG. Its parts are
+  held to JAX above; the loop as a whole is not compared, since the
+  port's env draws and torque noise come from torch generators and the
+  JAX package's from its keys.
 
 The JAX planners step on the CPU with the JAX `step`, which keeps the 32
 contact slots with the smallest gaps; the port's step is selection-free
@@ -561,8 +563,8 @@ def small_agent(seed=0, dtype=torch.float32):
 def check_agent_errors_and_model_edit():
     m = tm64()
     task = stand_task(dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Agent(m, task)                           # the default, "ilqg"
+    a = Agent(m, task, horizon=2)                # the default, "ilqg"
+    assert a.planner == "ilqg" and a.cfg.horizon == 2
     with pytest.raises(ValueError, match="unknown planner"):
         Agent(m, task, planner="bogus")
     for p in ("cem", "mppi"):
@@ -702,8 +704,10 @@ def check_mpc_in_env():
     assert set(out) == {"survival_s", "fell", "mean_reward", "control_hz",
                         "steps"}
     assert out["steps"] == 3 and np.isfinite(out["mean_reward"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mpc_in_env.run(seconds=0.002, device="cpu")
+    # the default planner, iLQG (one tick, a short horizon)
+    out = mpc_in_env.run(seconds=0.002, horizon=2, planner_iterations=1,
+                         verbose=False, device="cpu")
+    assert out["steps"] == 1 and np.isfinite(out["mean_reward"])
 
 
 def run_local_checks():
