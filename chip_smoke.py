@@ -61,18 +61,36 @@ the port's three paths:
   registry id, one plan and one step through B3, each of its B3 launches
   (batch 64 and 1) held against B3's twin on the same inputs
   (`swimmer_agent`); the host wall time of each serving phase
-  (`serving_walls`).
+  (`serving_walls`);
+- the task slice (the task library's sphere-and-joint tier, each at its
+  model's published size): B1 and B2 on Walker and Quadruped Flat
+  states settled 50 steps, B2 behind the plain smooth stage on
+  Quadruped Hill and B3 on Cartpole's rows, each against its twins at
+  B = 1024, 300 and 1 (B2 and B3 against the float64 twins on all but
+  0.5% of the envs), with its bitwise repeat and a NaN env kept to
+  itself (`task_kernels`); the kernels one step of each task's model
+  launches, none on Acrobot and Particle, whose float32 step is held to
+  the CPU's float64 step (`task_routing`); a 1024 x 100 rollout of each
+  model under its task, with launches and idle share from
+  torch.profiler (`task_rollouts`); the JAX package's task tests'
+  closed loops: the walker holding its height under sampling MPC, the
+  A1 standing on the flat floor and on the hill, iLQG swinging the
+  cartpole up, sampling MPC pumping the acrobot (`task_loops`); and an
+  Agent of each task by name at its default planner, iLQG, one
+  planner_step and one get_action (`task_agents`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B1's and
 B2's occupancy on the humanoid and B3's on the Swimmer's rows, the
 humanoid's rows and the nv-36 case (envs and shared bytes per block,
 shared bytes per env, blocks per SM, registers and spills), and B1's
-with per-env packs. It prints a `kernels` JSON line (time, launch
+with per-env packs, and each new task model's (`task_occupancy`). It
+prints a `kernels` JSON line (time, launch
 count, plain-twin time and roofline bound per kernel; B1's and B2's
 rows also their RL and serving launches (iLQG's too) and their times
 and bounds at batch 4 and 8, B1's its per-env time and bound at B =
-4096; B3's row its Swimmer-agent launches) and the
+4096; B3's row its Swimmer-agent launches; each kernel's row its
+times, launches and bound on the task slice's models) and the
 script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
@@ -308,7 +326,8 @@ def isolation(m, solve, args, model_states, env=7):
     assert all(torch.equal(a, b) for a, b in zip(first, again)), \
         "the kernel differs between two launches on the same inputs"
     qv = args[2].clone()
-    qv[env, 3] = float("nan")
+    dof = min(3, qv.shape[1] - 1)
+    qv[env, dof] = float("nan")
     poisoned = solve(*args[:2], qv, *args[3:])
     B = qv.shape[0]
     rest = torch.arange(B, device=qv.device) != env
@@ -319,7 +338,7 @@ def isolation(m, solve, args, model_states, env=7):
                for a, b in zip(first, poisoned)), \
         "a NaN env changed another env's outputs"
     qpos, qvel, ctrl = model_states(m, B)
-    qvel[env, 3] = float("nan")
+    qvel[env, dof] = float("nan")
     _, info = step(m, make_state(m, qpos=qpos, qvel=qvel), ctrl)
     flagged = info.diverged.nonzero().flatten().tolist()
     assert flagged == [env], flagged
@@ -1228,9 +1247,12 @@ def profile_busy_ms(fn):
 
 def per_env_err(outs, refs):
     """(B,) the largest |out - ref| of each env over a tuple of outputs,
-    each over the largest |ref| of the batch."""
+    each over the largest |ref| of the batch + 1e-9 (as rel_err, so an
+    all-zero output such as an idle row's force is held absolutely); NaN
+    where an output is not finite."""
     errs = [(o.double() - r.double()).abs().reshape(o.shape[0], -1)
-            .amax(dim=1) / r.double().abs().max() for o, r in zip(outs, refs)]
+            .amax(dim=1) / (r.double().abs().max() + 1e-9)
+            for o, r in zip(outs, refs) if r.numel()]
     return torch.stack(errs).amax(dim=0)
 
 
@@ -2259,6 +2281,675 @@ def run_serving(device="cuda", gpu="cpu", ckpt=None,
             {"launches_swimmer_agent": sw["launches"]["euler"]})
 
 
+# the task slice: the sphere-and-joint tier of the task library, each
+# task's model at its published size, float32
+TASK_NAMES = ("Acrobot", "Cartpole", "Humanoid Cap Walk", "Particle",
+              "ParticleFixed", "Quadruped Flat", "Quadruped Hill", "Walker")
+TASK_ROUTES = {"Humanoid Cap Walk": "smooth", "Walker": "smooth",
+               "Quadruped Flat": "smooth", "Quadruped Hill": "contact",
+               "Cartpole": "rows", "Acrobot": "free", "Particle": "free",
+               "ParticleFixed": "free"}
+ROUTE_LAUNCHES = {"smooth": {"smooth": 1, "solver": 1, "euler": 0},
+                  "contact": {"smooth": 0, "solver": 1, "euler": 0},
+                  "rows": {"smooth": 0, "solver": 0, "euler": 1},
+                  "free": {"smooth": 0, "solver": 0, "euler": 0}}
+# the models the rollouts run (ParticleFixed shares Particle's model)
+TASK_ROLLOUTS = ("Walker", "Quadruped Flat", "Quadruped Hill",
+                 "Humanoid Cap Walk", "Cartpole", "Acrobot", "Particle")
+TASK_SETTLE = 50
+TASK_BATCHES = (BENCH_BATCH, 300, 1)
+# the closed loops of the JAX package's own task tests
+# (tests/test_tasks_suite.py), at their settings; the one depth cut:
+# Cartpole's iLQG swing-up runs 8 iterations, not 20 (the float32 port
+# crosses 0.85 of the first return at the 7th, on the CPU and the card)
+CARTPOLE_ILQG_ITERS = 8
+
+
+def task_states(name, m, B, seed=0):
+    """B states of task `name` on m's device (numpy seed): the home
+    keyframe plus noise (joints 0.03-0.05 N, or 0.3 N on the planar
+    models' coordinates; qvel 0.1 N), controls uniform in the middle 40%
+    of the range (the quadruped: the home servo targets + 0.05 N).
+    Quadruped Hill's trunks stand at the keyframe height over the
+    terrain at points around the hill (radius 0.5-2.5 m); Cartpole's
+    carts spread over the rail and into its limits."""
+    from humanoid_mujoco_torch.tasks import home_qpos
+    from humanoid_mujoco_torch.tasks.quadruped import home_ctrl
+    from humanoid_mujoco_torch.tasks.quadruped_hill import hill_height_np
+    rng = np.random.default_rng(seed)
+    nq, nv, nu = m.nq, m.nv, m.nu
+    qpos = np.tile(home_qpos(name, m).double().cpu().numpy(), (B, 1))
+    qvel = 0.1 * rng.standard_normal((B, nv))
+    lo, hi = m.act_ctrlrange.double().cpu().numpy().T
+    ctrl = rng.uniform(lo + 0.3 * (hi - lo), hi - 0.3 * (hi - lo), (B, nu))
+    if name.startswith("Quadruped"):
+        qpos[:, 7:] += 0.03 * rng.standard_normal((B, 12))
+        ctrl = home_ctrl(m).double().cpu().numpy() \
+            + 0.05 * rng.standard_normal((B, 12))
+        if name == "Quadruped Hill":
+            th = rng.uniform(0.0, 2 * np.pi, B)
+            r = rng.uniform(0.5, 2.5, B)
+            qpos[:, 0], qpos[:, 1] = r * np.cos(th), r * np.sin(th)
+            qpos[:, 2] = hill_height_np(qpos[:, 0], qpos[:, 1]) + 0.27
+    elif name == "Humanoid Cap Walk":
+        qpos[:, 7:] += 0.03 * rng.standard_normal((B, 12))
+        ctrl = 0.3 * rng.standard_normal((B, nu))
+    elif name == "Walker":
+        qpos[:, 1:] += 0.05 * rng.standard_normal((B, nq - 1))
+    elif name == "Cartpole":
+        qpos[:, 0] = rng.uniform(-1.85, 1.85, B)
+        qpos[:, 1] = rng.uniform(-np.pi, np.pi, B)
+        qvel = 0.5 * rng.standard_normal((B, nv))
+    else:
+        qpos += 0.3 * rng.standard_normal((B, nq))
+    return tuple(torch.tensor(x, dtype=m.dtype, device=m.device)
+                 for x in (qpos, qvel, ctrl))
+
+
+def settled_states(name, m, B, seed=0, n=TASK_SETTLE):
+    """`task_states` after n steps under their controls, so that feet
+    carry load."""
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.physics.step import step
+    qpos, qvel, ctrl = task_states(name, m, B, seed)
+    s = State(qpos=qpos, qvel=qvel,
+              time=torch.zeros(B, dtype=m.dtype, device=m.device))
+    for _ in range(n):
+        s, info = step(m, s, ctrl)
+    assert not bool(info.diverged.any()), f"{name}: settling diverged"
+    return s.qpos, s.qvel, ctrl
+
+
+def contact_solve_inputs(m, qpos, qvel, ctrl):
+    """Kernel B2's inputs of the "contact" route (the plain smooth stage,
+    collision, the raw contact and limit data): the 18 arguments of
+    solve_step_raw before lim_tab."""
+    from humanoid_mujoco_torch.physics.collision import collide
+    from humanoid_mujoco_torch.physics.engine import prepare_smooth
+    from humanoid_mujoco_torch.physics.solver import (contact_raw,
+                                                      limit_rows_data)
+    kin, _, M, qf = prepare_smooth(m, qpos, qvel, ctrl)
+    c = collide(m, kin.xpos, kin.xmat)
+    dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, c)
+    lpos, kl, bl, dl = limit_rows_data(m, qpos)
+    return (M, qf, qvel, kin.cdof, rel, c.normal, c.dist, mu3, dmask, kc,
+            bc, dc, lpos, kl, bl, dl, m.dt * m.dof_damping, m.dt)
+
+
+def route_solve_inputs(way, m, qpos, qvel, ctrl):
+    """The solve kernel's inputs on `way`, the model's step route: B2's
+    18 arguments before lim_tab from B1's float32 twin ("smooth") or
+    from `contact_solve_inputs` ("contact"), B3's 10 from
+    `swimmer_solve_inputs` ("rows")."""
+    from humanoid_mujoco_torch.physics import fused_smooth
+    from humanoid_mujoco_torch.physics.solver import contact_dmask
+    if way == "contact":
+        return contact_solve_inputs(m, qpos, qvel, ctrl)
+    if way == "rows":
+        return swimmer_solve_inputs(m, qpos, qvel, ctrl)
+    ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl)
+    return (ref[0], ref[1], qvel, *ref[2:7], contact_dmask(m), *ref[7:14],
+            m.dt * m.dof_damping, m.dt)
+
+
+def against_twins(solve, twin, args, kw, names):
+    """A solve kernel (B2 or B3) against its float32 and float64 twins
+    on the same inputs: the max relative error per output against the
+    float32 twin, and per env against the float64 twin (`per_env_err`),
+    whose envs over TOL or not finite may be at most 0.5% of the batch
+    (a rounding that flips an active set; the float32 twin's count
+    beside it)."""
+    ker = solve(*args, **kw)
+    r32 = twin(*args, **kw)
+    r64 = twin(*[a.double() if torch.is_tensor(a) else a for a in args],
+               **kw)
+    B = args[0].shape[0]
+    e_k, e_t = per_env_err(ker, r64), per_env_err(r32, r64)
+    out = {"batch": B,
+           "errs_vs_twin": {n: rel_err(r, o, n)
+                            for n, r, o in zip(names, r32, ker)},
+           "envs_over_tol_vs_float64": int((~(e_k <= TOL)).sum()),
+           "twin_envs_over_tol_vs_float64": int((~(e_t <= TOL)).sum()),
+           "max_err_vs_float64_held": float(e_k.sort().values[
+               B - 1 - B // 200]),
+           "max_abs_err": max(float((r - o).abs().max())
+                              for r, o in zip(r32, ker) if r.numel())}
+    out["max_rel_err_vs_twin"] = max(out["errs_vs_twin"].values())
+    assert out["envs_over_tol_vs_float64"] <= B // 200, out
+    return ker, out
+
+
+def bare_kernel_ms(name, launch_args, device):
+    """`kernel_ms` of kernel `name`'s C entry on the arguments its
+    wrapper builds (`launch_args`, from fused_smooth._smooth_launch_args
+    or fused_solver._solver_launch_args / _euler_launch_args); None on
+    the CPU."""
+    from humanoid_mujoco_torch import kernels
+    if device == "cpu":
+        return None
+    if name == "smooth":
+        ins, outs, meta, ints = launch_args
+        ptrs = [None if t is None or t.numel() == 0 else t.data_ptr()
+                for t in ins + outs] + [meta.data_ptr(), *ints]
+    elif name == "solver":
+        ins, ints, outs = launch_args
+        ptrs = [t.data_ptr() for t in ins + outs] + list(ints)
+    else:
+        ins, (strides, *ints), outs = launch_args
+        ptrs = [t.data_ptr() for t in ins + outs + (strides,)] + ints
+    return kernel_ms(lambda: kernels.launch(name, *ptrs))
+
+
+def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
+    """The kernels of this model's route against their twins on settled
+    states at B = 1024, 300 and 1 (B1 within TOL of its float32 twin, B2
+    and B3 `against_twins`); at B = 1024 on the card each kernel's
+    bitwise repeat and the isolation of a NaN env, its device time a
+    launch (`bare_kernel_ms`), the wrapper's and the twin's time and the
+    bound.
+    Returns (the phase's numbers, per kernel the table's numbers)."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    way = TASK_ROUTES[name]
+    lim_tab = limit_rows_static(m)
+    out, rows = {}, {}
+    b2_names = ("qacc", "qvel_new", "fslot", "qfrc_constraint")
+    b3_names = ("qacc", "qvel_new", "efc_force", "qfrc_constraint")
+    main = settled_states(name, m, batches[0], seed=21)
+    for B in batches:
+        qpos, qvel, ctrl = (x[:B].contiguous() for x in main)
+        res = {}
+        if way == "smooth":
+            ker = fused_smooth.smooth_raw(m, qpos, qvel, ctrl)
+            ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl)
+            errs = {n: rel_err(r, o, n)
+                    for n, r, o in zip(fused_smooth.NAMES, ref, ker)}
+            res["smooth_max_rel_err"] = max(errs.values())
+            res["smooth_worst"] = max(errs, key=errs.get)
+            res["smooth_max_abs_err"] = max(
+                float((r - o).abs().max()) for n, r, o in
+                zip(fused_smooth.NAMES, ref, ker)
+                if r.numel() and n != "dist")
+            assert res["smooth_max_rel_err"] <= TOL, (name, B, errs)
+        solve_in = route_solve_inputs(way, m, qpos, qvel, ctrl)
+        if way in ("smooth", "contact"):
+            _, res["solver"] = against_twins(
+                fused_solver.solve_step_raw,
+                fused_solver.solve_step_raw_reference, solve_in,
+                {"lim_tab": lim_tab}, b2_names)
+            res["loaded_slots_mean"] = float(
+                (solve_in[6] < 0).sum(dim=1).double().mean())
+        if way == "rows":
+            _, res["euler"] = against_twins(
+                fused_solver.solve_constraints_euler,
+                fused_solver.solve_constraints_euler_reference, solve_in,
+                {}, b3_names)
+            res["active_limit_rows_mean"] = float(
+                (solve_in[4] < 0).sum(dim=1).double().mean())
+        out[f"batch_{B}"] = res
+    qpos, qvel, ctrl = main
+    B = qpos.shape[0]
+    solve_in = route_solve_inputs(way, m, qpos, qvel, ctrl)
+
+    def model_states(mm, n):
+        return tuple(x[:n].clone() for x in main)
+    if device != "cpu" and way == "smooth":
+        out["smooth_isolation"] = smooth_isolation(m, qpos, qvel, ctrl)
+    if device != "cpu" and way in ("smooth", "contact"):
+        out["solver_isolation"] = isolation(
+            m, lambda *a: fused_solver.solve_step_raw(*a, lim_tab=lim_tab),
+            solve_in, model_states)
+    if device != "cpu" and way == "rows":
+        out["euler_isolation"] = isolation(
+            m, fused_solver.solve_constraints_euler, solve_in, model_states)
+    # the table's numbers at B = 1024; timing launches are not counted
+    n = counters()
+    if way == "smooth":
+        packs = fused_smooth._pack_params(m)
+        nbytes, flops = smooth_cost(m, B, len(lim_tab), packs)
+        bound_ms, bound_by = bound(nbytes, flops)
+
+        def b1():
+            return fused_smooth.smooth_raw(m, qpos, qvel, ctrl)
+        rows["smooth"] = {
+            "ms": bare_kernel_ms("smooth", fused_smooth._smooth_launch_args(
+                m, qpos, qvel, ctrl, None), device),
+            "wrapper_ms": timer(b1, 20),
+            "plain_ms": timer(lambda: fused_smooth.smooth_raw_reference(
+                m, qpos, qvel, ctrl), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "max_abs_err": out[f"batch_{B}"]["smooth_max_abs_err"]}
+    if way in ("smooth", "contact"):
+        raw = solve_in[3:8] + solve_in[9:16]
+        _, _, f_t, trace = solve_trace(solve_in[0], solve_in[1], qvel, raw,
+                                       solve_in[8], lim_tab)
+        nbytes, flops = solve_cost(m, B, solve_in[8], lim_tab, f_t, trace)
+        bound_ms, bound_by = bound(nbytes, flops)
+
+        def b2():
+            return fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
+        rows["solver"] = {
+            "ms": bare_kernel_ms("solver", fused_solver._solver_launch_args(
+                *solve_in, lim_tab, 8, 16), device),
+            "wrapper_ms": timer(b2, 20),
+            "plain_ms": timer(lambda: fused_solver.solve_step_raw_reference(
+                *solve_in, lim_tab=lim_tab), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "max_abs_err": out[f"batch_{B}"]["solver"]["max_abs_err"]}
+    if way == "rows":
+        _, _, f_t, trace = rows_trace(*solve_in[:8])
+        nbytes, flops = rows_cost(solve_in[3], f_t, trace)
+        bound_ms, bound_by = bound(nbytes, flops)
+
+        def b3():
+            return fused_solver.solve_constraints_euler(*solve_in)
+        rows["euler"] = {
+            "ms": bare_kernel_ms("euler", fused_solver._euler_launch_args(
+                *solve_in, 8, 16), device),
+            "wrapper_ms": timer(b3, 20),
+            "plain_ms": timer(
+                lambda: fused_solver.solve_constraints_euler_reference(
+                    *solve_in), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "max_abs_err": out[f"batch_{B}"]["euler"]["max_abs_err"]}
+    fused_smooth.LAUNCHES, fused_solver.LAUNCHES = n["smooth"], n["solver"]
+    fused_solver.EULER_LAUNCHES = n["euler"]
+    return out, rows
+
+
+def task_routing(name, device):
+    """One step of task `name`'s model at batch 64 on `task_states`: the
+    kernels it launched, from the counters (ROUTE_LAUNCHES of its route).
+    On the solver-free route the card's float32 step is also held to the
+    CPU's float64 step on the same inputs."""
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.physics.step import route, step
+    from humanoid_mujoco_torch.tasks import task_model
+    m = task_model(name, device=device)
+    qpos, qvel, ctrl = task_states(name, m, 64, seed=5)
+    s = State(qpos=qpos, qvel=qvel,
+              time=torch.zeros(64, dtype=m.dtype, device=m.device))
+    counters_zero()
+    s2, info = step(m, s, ctrl)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    n = counters()
+    out = {"route": route(m), "launches": n}
+    assert route(m) == TASK_ROUTES[name], (name, route(m))
+    if device != "cpu":
+        assert n == ROUTE_LAUNCHES[TASK_ROUTES[name]], (name, n)
+    if TASK_ROUTES[name] == "free":
+        m64 = task_model(name, dtype=torch.float64, device="cpu")
+        s64 = State(*(x.double().cpu() for x in (qpos, qvel, s.time)))
+        r2, rinfo = step(m64, s64, ctrl.double().cpu())
+        errs = {"qpos": rel_err(r2.qpos, s2.qpos),
+                "qvel": rel_err(r2.qvel, s2.qvel),
+                "qacc": rel_err(rinfo.qacc, info.qacc)}
+        out["errs_vs_cpu_float64"] = errs
+        assert max(errs.values()) <= TOL, (name, errs)
+    return out
+
+
+def task_rollout(name, m, B, horizon, seed=6):
+    """Task `name`'s rollout for the cells: B `task_states` under a
+    3-knot zero-order spline of their controls + 0.02 N of the range
+    (numpy seed), the task's residual and cost each step. Returns
+    rollout(), one `rollout_spline` of `horizon` steps."""
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.rollout import rollout_spline
+    from humanoid_mujoco_torch.tasks import get_task
+    task = get_task(name, device=m.device)
+    if name == "Humanoid Cap Walk":
+        task = task.set_mode("Walk")
+    qpos, qvel, ctrl = task_states(name, m, B, seed)
+    s0 = State(qpos=qpos, qvel=qvel,
+               time=torch.zeros(B, dtype=m.dtype, device=m.device))
+    rng = np.random.default_rng(seed)
+    lo, hi = m.act_ctrlrange[:, 0], m.act_ctrlrange[:, 1]
+    values = torch.clamp(ctrl[:, None] + 0.02 * (hi - lo) * torch.tensor(
+        rng.standard_normal((B, 3, m.nu)), dtype=m.dtype, device=m.device),
+        lo, hi)
+    times = torch.linspace(0.0, horizon * float(m.dt), 3, dtype=m.dtype,
+                           device=m.device)
+
+    def rollout():
+        return rollout_spline(m, task, s0, times, values, SplineOrder.ZERO,
+                              horizon)
+    return rollout
+
+
+def task_rollouts(device, timer, B, horizon, profile="Walker",
+                  short=3):
+    """The 1024 x 100 rollout of each model under its task: ms (CUDA
+    events, median of 3 after the counted run), steps/s, kernel launches
+    per step (counters), and for `profile` the device busy time, all
+    launches and the idle share of one rollout (torch.profiler). For
+    every model also a `short`-step rollout of the same batch under the
+    profiler: CUDA launches and device busy time a step, the idle share
+    against the full rollout's time a step, and the three busiest
+    kernels."""
+    from humanoid_mujoco_torch.tasks import task_model
+    out, launches = {}, {}
+    for name in TASK_ROLLOUTS:
+        m = task_model(name, device=device)
+        rollout = task_rollout(name, m, B, horizon)
+        counters_zero()
+        res = rollout()                   # counted, and the warm-up
+        if device != "cpu":
+            torch.cuda.synchronize()
+        n = counters()
+        ms = timer(rollout, 3)
+        launches[name] = n
+        r = {"batch": B, "horizon": horizon, "ms": ms,
+             "steps_per_s": B * horizon / (ms * 1e-3),
+             "launches": n,
+             "launches_per_step": {k: v / horizon for k, v in n.items()},
+             "mean_return": float(res.total_return.mean()),
+             "diverged": int(res.diverged.sum())}
+        if device != "cpu":
+            if name == profile:
+                busy, all_launches = profile_busy_ms(rollout)
+                r.update(device_busy_ms=busy, cuda_launches=all_launches,
+                         cuda_launches_per_step=all_launches / horizon,
+                         idle_share=1.0 - busy / ms)
+            few = task_rollout(name, m, B, short)
+            few()
+            rows = profile_rows(few)
+            busy = sum(x[2] for x in rows) / 1e3
+            seen = sum(x[1] for x in rows if any(
+                k in x[0] for k in ("smooth_kernel", "solve_kernel",
+                                    "euler_kernel")))
+            assert seen == sum(ROUTE_LAUNCHES[TASK_ROUTES[name]].values()) \
+                * short, (name, "the profiler missed launches", rows[:5])
+            r["short"] = {
+                "horizon": short, "busy_ms_per_step": busy / short,
+                "cuda_launches_per_step": sum(x[1] for x in rows) / short,
+                "idle_share": 1.0 - busy / short / (ms / horizon),
+                "top": [(k[:60], c, t / 1e3) for k, c, t in rows[:3]]}
+        out[name] = r
+        assert bool(torch.isfinite(res.total_return).all()), name
+        assert not bool(res.diverged.any()), (name, r)
+        if device != "cpu":
+            want = ROUTE_LAUNCHES[TASK_ROUTES[name]]
+            assert n == {k: v * horizon for k, v in want.items()}, (name, n)
+    return out, launches
+
+
+def walker_holds_height(device, seeds=range(8)):
+    """tests/test_tasks_suite.py:358-381 on the port: sampling MPC (32
+    samples, 3 zero-order knots, horizon 20 at plan dt 0.02, 4 solver
+    iterations, exploration 0.1) on the walker at dt 0.005, 30 cycles x 4
+    sim steps, once per generator seed. Every run keeps the torso above
+    1.0 m; the upright bound (|rooty| < 0.5) holds on at least 7 of 8
+    runs, the JAX test's own rate over PRNG keys 0-7 (its key 7 ends at
+    rooty -0.58 on the CPU)."""
+    from humanoid_mujoco_torch import mpc
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.planners import (SamplingConfig, init_policy,
+                                                sampling_plan)
+    from humanoid_mujoco_torch.tasks.walker2d import (walker_model,
+                                                      walker_stand_qpos,
+                                                      walker_task)
+    m = walker_model(dt=0.005, device=device)
+    task = walker_task(device=device)
+    cfg = SamplingConfig(nsample=32, nknots=3, horizon=20,
+                         order=SplineOrder.ZERO, solver_iters=4,
+                         exploration=0.1)
+    heights, pitches, costs = [], [], []
+    for seed in seeds:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        res = mpc.mpc_rollout(
+            m, mpc.make_plan_model(m, 0.02), task,
+            lambda mm, tt, pp, ss, g: sampling_plan(mm, tt, cfg, pp, ss,
+                                                    generator=g),
+            init_policy(m, cfg.nknots),
+            make_state(m, qpos=walker_stand_qpos(m)), gen, 30, 4,
+            mpc.spline_action_fn(cfg.order), sim_solver_iters=4)
+        assert bool(torch.isfinite(res.costs).all()), seed
+        heights.append(1.3 + float(res.final_state.qpos[0, 0]))
+        pitches.append(float(res.final_state.qpos[0, 2]))
+        costs.append(float(res.costs.mean()))
+    upright = sum(abs(p) < 0.5 for p in pitches)
+    out = {"seeds": list(seeds), "final_heights": heights,
+           "final_pitches": pitches, "mean_costs": costs,
+           "upright_runs": upright}
+    assert min(heights) > 1.0 and upright >= 7 * len(pitches) // 8, out
+    return out
+
+
+def quadruped_settles(device, hill):
+    """tests/test_tasks_suite.py:153-197 on the port: the A1 under its
+    home servo targets, 300 steps on the flat floor (the normal force
+    sums to its weight within 5%, the trunk within 0.05 m of 0.27) or
+    400 on the hill, dropped at (1.6, 0) 0.30 m over the terrain (it
+    stands 0.26 m over the terrain, within 0.06)."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    from humanoid_mujoco_torch.tasks import quadruped_hill as QH
+    from humanoid_mujoco_torch.tasks.quadruped import (home_ctrl,
+                                                       quadruped_home_qpos,
+                                                       quadruped_model)
+    m = (QH.quadruped_hill_model(device=device) if hill
+         else quadruped_model(device=device))
+    q = quadruped_home_qpos(m)
+    if hill:
+        q[0], q[2] = 1.6, float(QH.hill_height_np(1.6, 0.0)) + 0.30
+    s = make_state(m, qpos=q)
+    u = home_ctrl(m)[None]
+    diverged = False
+    for _ in range(400 if hill else 300):
+        s, info = step(m, s, u)
+        diverged |= bool(info.diverged.any())
+    x, y, z = (float(v) for v in s.qpos[0, :3])
+    if hill:
+        terrain = float(QH.hill_height_np(x, y))
+        out = {"steps": 400, "height_over_terrain": z - terrain}
+        assert not diverged and abs(z - terrain - 0.26) < 0.06, out
+        return out
+    weight = 9.81 * float(m.body_mass.sum())
+    fn = float(info.contact_force.sum())
+    out = {"steps": 300, "normal_force": fn, "weight": weight,
+           "trunk_z": z}
+    assert not diverged and abs(fn - weight) <= 0.05 * weight \
+        and abs(z - 0.27) < 0.05, out
+    return out
+
+
+def cartpole_swingup(device, iters=CARTPOLE_ILQG_ITERS):
+    """tests/test_tasks_suite.py:85-113 on the port: iLQG (horizon 80 at
+    plan dt 0.02, 2 solver iterations) from the pole 0.25 rad off
+    hanging; the best return falls below 0.85 of the first."""
+    from humanoid_mujoco_torch.mpc import make_plan_model
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.planners import ilqg
+    from humanoid_mujoco_torch.tasks import get_task, home_qpos, task_model
+    m = task_model("Cartpole", device=device)
+    q = home_qpos("Cartpole", m)
+    q[1] = np.pi - 0.25
+    s0 = make_state(m, qpos=q)
+    pm = make_plan_model(m, 0.02)
+    cfg = ilqg.ILQGConfig(horizon=80, solver_iters=2, deriv_solver_iters=2)
+    task = get_task("Cartpole", device=device)
+    ps = ilqg.ilqg_init(pm, cfg, s0)
+    returns = []
+    for _ in range(iters):
+        ps, info = ilqg.ilqg_plan(pm, task, cfg, ps, s0)
+        returns.append(float(info.best_return))
+    out = {"iterations": iters, "first": returns[0], "last": returns[-1],
+           "ratio": returns[-1] / returns[0]}
+    assert np.isfinite(returns[-1]) and out["ratio"] < 0.85, out
+    return out
+
+
+def acrobot_pumps(device):
+    """tests/test_tasks_suite.py:127-150 on the port: sampling MPC (48
+    samples, 6 linear knots, horizon 40 at plan dt 0.05, 2 solver
+    iterations, exploration 0.6), 40 cycles x 5 sim steps from hanging;
+    the tip ends above 1.0 m (it starts at 0, the shoulder is at 2)."""
+    from humanoid_mujoco_torch import mpc
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import forward
+    from humanoid_mujoco_torch.planners import (SamplingConfig, init_policy,
+                                                sampling_plan)
+    from humanoid_mujoco_torch.tasks import get_task, home_qpos, task_model
+    m = task_model("Acrobot", device=device)
+    task = get_task("Acrobot", device=device)
+    cfg = SamplingConfig(nsample=48, nknots=6, horizon=40,
+                         order=SplineOrder.LINEAR, solver_iters=2,
+                         exploration=0.6)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    res = mpc.mpc_rollout(
+        m, mpc.make_plan_model(m, 0.05), task,
+        lambda mm, tt, pp, ss, g: sampling_plan(mm, tt, cfg, pp, ss,
+                                                generator=g),
+        init_policy(m, cfg.nknots),
+        make_state(m, qpos=home_qpos("Acrobot", m)), gen, 40, 5,
+        mpc.spline_action_fn(cfg.order), sim_solver_iters=2)
+    info = forward(m, res.final_state, torch.zeros((1, m.nu), dtype=m.dtype,
+                                                   device=m.device))[3]
+    tip = float(info.site_xpos[0, m.struct.site_id("tip"), 2])
+    out = {"tip_z": tip, "mean_cost": float(res.costs.mean())}
+    assert bool(torch.isfinite(res.costs).all()) and tip > 1.0, out
+    return out
+
+
+def task_agents(device):
+    """`Agent(task_model(name), name)` for each task at its default
+    planner (iLQG, horizon 17): one planner_step and one get_action from
+    the home keyframe (Quadruped Hill's on the slope at the first
+    waypoint; Humanoid Cap Walk in mode "Walk"), with the kernels each
+    launched."""
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.tasks import home_qpos, task_model
+    from humanoid_mujoco_torch.tasks.quadruped_hill import hill_height_np
+    out, launches = {}, {}
+    for name in TASK_NAMES:
+        m = task_model(name, device=device)
+        a = Agent(m, name)
+        if name == "Humanoid Cap Walk":
+            a.set_mode("Walk")
+        q = home_qpos(name, m)
+        if name == "Quadruped Hill":
+            q[0], q[2] = 1.6, float(hill_height_np(1.6, 0.0)) + 0.27
+        a.set_state(qpos=q)
+        counters_zero()
+        t0 = time.perf_counter()
+        best = a.planner_step()
+        u = a.get_action()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counters()
+        launches[name] = n
+        out[name] = {"planner": a.planner, "mode": a.get_mode(),
+                     "best_return": best, "wall_s": wall, "launches": n}
+        assert a.planner == "ilqg" and np.isfinite(best) \
+            and u.shape == (m.nu,) and np.all(np.isfinite(u)), (name, out)
+        if device != "cpu":
+            want = ROUTE_LAUNCHES[TASK_ROUTES[name]]
+            # the nominal search's and the line search's rollouts
+            assert n == {k: v * 2 * a.cfg.horizon
+                         for k, v in want.items()}, (name, n)
+    return out, launches
+
+
+def task_occupancy():
+    """Each new model's kernel occupancy at the block shapes the wrappers
+    launch: B1 and B2 on Walker and Quadruped Flat, B2 on Quadruped
+    Hill, B3 on Cartpole's rows."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.solver import (contact_dmask,
+                                                      limit_rows_static)
+    from humanoid_mujoco_torch.tasks import task_model
+    out = {}
+    for name in ("Walker", "Quadruped Flat", "Quadruped Hill", "Cartpole"):
+        m = task_model(name, device="cuda")
+        nlim = len(limit_rows_static(m))
+        occ = {}
+        if TASK_ROUTES[name] == "smooth":
+            occ["smooth"] = fused_smooth.smooth_occupancy(m)
+        if m.ncon:
+            occ["solver"] = fused_solver.solver_occupancy(
+                m.nv, m.ncon, nlim,
+                len(fused_solver.chain_layout(contact_dmask(m))[1]))
+        else:
+            occ["euler"] = fused_solver.euler_occupancy(m.nv, nlim)
+        out[name] = occ
+    return out
+
+
+def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
+              horizon=BENCH_HORIZON, batches=TASK_BATCHES):
+    """The task slice's phases: `task_kernels` (each new model's kernels
+    against their twins, `task_kernel_checks`), `task_routing`,
+    `task_rollouts`, `task_loops` (the JAX task tests' closed loops),
+    `task_agents`, `task_walls`. Returns each kernel's numbers on the new
+    models for the kernel table."""
+    from humanoid_mujoco_torch.tasks import task_model
+    timer = Timer(device)
+    walls, t_all = {}, time.perf_counter()
+    rows = {"smooth": {}, "solver": {}, "euler": {}}
+    t0 = time.perf_counter()
+    for name in ("Walker", "Quadruped Flat", "Quadruped Hill", "Cartpole"):
+        m = task_model(name, device=device)
+        res, krows = task_kernel_checks(name, m, device, timer, batches)
+        log("task_kernels", gpu=gpu, model=name, tol=TOL, **res)
+        for k, r in krows.items():
+            rows[k][name] = r
+    walls["task_kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("task_routing", **{n: task_routing(n, device) for n in TASK_NAMES})
+    walls["task_routing_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ro, ro_launches = task_rollouts(device, timer, B, horizon)
+    log("task_rollouts", gpu=gpu, **ro)
+    walls["task_rollouts_s"] = time.perf_counter() - t0
+    loops, totals = {}, {n: dict(ro_launches[n]) for n in ro_launches}
+    for key, name, fn in (
+            ("walker_holds_height", "Walker",
+             lambda: walker_holds_height(device)),
+            ("quadruped_flat_settles", "Quadruped Flat",
+             lambda: quadruped_settles(device, hill=False)),
+            ("quadruped_hill_settles", "Quadruped Hill",
+             lambda: quadruped_settles(device, hill=True)),
+            ("cartpole_ilqg_swingup", "Cartpole",
+             lambda: cartpole_swingup(device)),
+            ("acrobot_pumps", "Acrobot", lambda: acrobot_pumps(device))):
+        counters_zero()
+        t0 = time.perf_counter()
+        loops[key] = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        walls[f"{key}_s"] = time.perf_counter() - t0
+        loops[key]["launches"] = counters()
+        for k, v in loops[key]["launches"].items():
+            totals[name][k] += v
+        if device != "cpu":
+            want = ROUTE_LAUNCHES[TASK_ROUTES[name]]
+            assert all(bool(n) == bool(want[k]) for k, n in
+                       loops[key]["launches"].items()), (key, loops[key])
+    log("task_loops", gpu=gpu, **loops)
+    t0 = time.perf_counter()
+    ag, ag_launches = task_agents(device)
+    log("task_agents", gpu=gpu, **ag)
+    walls["task_agents_s"] = time.perf_counter() - t0
+    log("task_walls", **walls, total_s=time.perf_counter() - t_all)
+    # the table's launch counts: each model's rollout, loop and Agent
+    for name, n in ag_launches.items():
+        if name in totals:
+            for k, v in n.items():
+                totals[name][k] += v
+    for k in rows:
+        for name, r in rows[k].items():
+            r["launches"] = totals[name][k]
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2299,12 +2990,13 @@ def main():
     rl_base = rl_env.rl_humanoid_model(device="cuda")
     es8, _ = rl_env.batch_reset(rl_env.EnvConfig(), rl_base, 1.0, 8, gen)
     smooth_occ_env = fused_smooth.smooth_occupancy(es8.patch.apply(rl_base))
+    task_occ = task_occupancy()
     log("environment", gpu=smi, torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas,
         smooth_occupancy=smooth_occ,
         smooth_occupancy_per_env_packs=smooth_occ_env,
         solver_occupancy=occupancy,
-        euler_occupancy=euler_occ,
+        euler_occupancy=euler_occ, task_occupancy=task_occ,
         float32_matmul_precision=torch.get_float32_matmul_precision(),
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
@@ -2313,6 +3005,13 @@ def main():
     b1_rl, b2_rl, ckpt = run_rl("cuda", gpu=smi)
     table[0].update(b1_rl)
     table[1].update(b2_rl)
+    # the task slice before serving: torch.profiler drops launches after
+    # the serving phase's 75 k-launch iLQG trace
+    task_rows = run_tasks("cuda", gpu=smi)
+    for row, k in zip(table, ("smooth", "solver", "euler")):
+        for name, r in task_rows[k].items():
+            slug = name.lower().replace(" ", "_")
+            row.update({f"{key}_{slug}": v for key, v in r.items()})
     b1_sv, b2_sv, b3_sv = run_serving("cuda", gpu=smi, ckpt=ckpt)
     table[0].update(b1_sv)
     table[1].update(b2_sv)

@@ -1,23 +1,33 @@
 """The physics step: the mj_step analog on a batch of states.
 
 Counterpart of humanoid_mujoco_tpu/physics/step.py (step.py:245-350),
-with its two kernel paths:
+with its four routes (`route`):
 
-- models in kernel B1's family (`fused_smooth.supported`, the cap
-  humanoid): the smooth stage (kernel B1, fused_smooth.smooth_raw), then
-  the row-building contact solve + implicit-damping Euler (kernel B2,
-  fused_solver.solve_step_raw), selection-free over all slots as on the
-  JAX kernel path;
-- models with no contact slots and at least one constraint row (the
-  Swimmer): the plain smooth stage `engine.prepare_smooth` (plain
-  PyTorch, as the JAX package runs it in XLA for such models), the
-  joint-limit rows (solver.make_rows), then the explicit-row solve +
-  Euler (kernel B3, fused_solver.solve_constraints_euler).
+- "smooth", models in kernel B1's family (`fused_smooth.supported`: the
+  cap humanoid, Walker, Quadruped Flat): the smooth stage (kernel B1,
+  fused_smooth.smooth_raw), then the row-building contact solve +
+  implicit-damping Euler (kernel B2, fused_solver.solve_step_raw),
+  selection-free over all slots as on the JAX kernel path;
+- "contact", models with contact slots outside B1's family (Quadruped
+  Hill, whose 64 x 64 heightfield is over B1's 1024-cell gate): the
+  plain smooth stage `engine.prepare_smooth`, `collide`, the raw contact
+  and limit data (solver.contact_raw, limit_rows_data), then kernel B2,
+  as JAX step.py:288-316 does; selection-free when nv·(nlim + 10 ncon)
+  <= 16384, as there (larger models need B2's per-env dmask and raise);
+- "rows", models with no contact slots and at least one constraint row
+  (the Swimmer, Cartpole): the plain smooth stage, the joint-limit rows
+  (solver.make_rows), then the explicit-row solve + Euler (kernel B3,
+  fused_solver.solve_constraints_euler);
+- "free", models with no contact slots and no rows (Acrobot, Particle):
+  the plain smooth stage, qacc = M⁻¹ qfrc_smooth and the update
+  (M + h diag(damping)) dv = h qfrc_smooth, plain PyTorch on every
+  device, as JAX runs this route without a kernel
+  (pallas_solver.py:295-305, :317, :331).
 
 Then position integration on the configuration manifold. CPU tensors
 run the kernels' plain PyTorch twins; CUDA tensors run the kernels.
-Other models (contacts outside B1's family, no constraint rows at all)
-come with slice 4 of the port and raise.
+Models with capsules, boxes, tendons, gravcomp or site actuators come
+with a later slice of the port (ROADMAP item 9e) and raise.
 
 `forward` is the JAX package's forward dynamics (qacc, qfrc_total, M,
 StepInfo) without the Euler update, plain PyTorch on every device as in
@@ -44,8 +54,9 @@ from . import engine, fused_smooth, fused_solver
 from . import math as pm
 from .collision import collide, select_contacts
 from .model import ActuatorType, JointType, Model, State
-from .solver import (contact_dmask, finish_efc, limit_rows_static,
-                     make_contact_rows, make_rows, newton_solve)
+from .solver import (contact_dmask, contact_raw, finish_efc,
+                     limit_rows_data, limit_rows_static, make_contact_rows,
+                     make_rows, newton_solve)
 
 _QVEL_LIMIT = 1e4
 
@@ -162,27 +173,37 @@ def forward(m: Model, state: State, ctrl: torch.Tensor,
     return qacc, qfrc_total, M, info
 
 
-def _check(m: Model, qpos: torch.Tensor) -> bool:
-    """Validate the call; True for B1's family, False for the explicit-
-    row path."""
-    if qpos.dtype != m.dtype or qpos.device != m.device:
-        raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
-                         f"match the model ({m.dtype}, {m.device})")
-    if m.struct_static("smooth_supported",
-                       lambda: fused_smooth.supported(m)):
-        return True
+_SELECTION_FREE_MAX = 16384   # nv·ne of JAX step's selection-free gate
+
+
+def route(m: Model) -> str:
+    """The route `step` takes for this model: "smooth" (B1 + B2),
+    "contact" (plain smooth stage + B2), "rows" (plain smooth stage +
+    B3) or "free" (no kernel); see the module docstring. Raises
+    NotImplementedError for a model the port cannot step yet."""
+    return m.struct_static("step_route", lambda: _route(m))
+
+
+def _route(m: Model) -> str:
     s = m.struct
-    if m.ncon or s.ntendon or s.has_gravcomp or any(
-            t == ActuatorType.SITE_THRUST for t in s.act_type):
+    if fused_smooth.supported(m):
+        return "smooth"
+    if (s.ncap or s.nbox or s.ntendon or s.has_gravcomp
+            or any(t == ActuatorType.SITE_THRUST for t in s.act_type)):
         raise NotImplementedError(
-            "this model is outside the kernel family (capsules, boxes, "
-            "tendons, gravcomp, site actuators); its step comes with "
-            "slice 4 of the port")
-    if not m.struct_static("lim_tab", lambda: limit_rows_static(m)):
-        raise NotImplementedError(
-            "a model without contact slots or constraint rows (Acrobot, "
-            "Particle) takes the solver-free step of slice 4 of the port")
-    return False
+            "this model has capsules, boxes, tendons, gravcomp or site "
+            "actuators; its step comes with slice 4 of the port (ROADMAP "
+            "item 9e)")
+    nlim = len(m.struct_static("lim_tab", lambda: limit_rows_static(m)))
+    if m.ncon:
+        if (0 < s.max_contacts < m.ncon
+                and s.nv * (nlim + 10 * m.ncon) > _SELECTION_FREE_MAX):
+            raise NotImplementedError(
+                "this contact model keeps its top-k contact selection in "
+                "the JAX step, which needs kernel B2's per-env dmask "
+                "(ROADMAP queue 2)")
+        return "contact"
+    return "rows" if nlim else "free"
 
 
 def step(m: Model, state: State, ctrl: torch.Tensor,
@@ -201,12 +222,16 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
     """
     h = m.dt
     qpos, qvel = state.qpos, state.qvel
-    if ift:
+    if qpos.dtype != m.dtype or qpos.device != m.device:
+        raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
+                         f"match the model ({m.dtype}, {m.device})")
+    way = "ift" if ift else route(m)
+    if way == "ift":
         _, qfrc_total, M, info = forward(m, state, ctrl, xfrc, solver_iters,
                                          ift=True)
         MhD = M + torch.diag_embed(h * m.dof_damping)
         qvel_new = qvel + h * linalg.solve_psd(MhD, qfrc_total)
-    elif _check(m, qpos):
+    elif way == "smooth":
         (M, qfrc_smooth, cdof, rel, nrm, dist, mu3, kc, bc, dc,
          lpos, kl, bl, dl, xpos, xquat, xipos, bcv, sitex, anchor,
          com_vel, actf) = fused_smooth.smooth_raw(m, qpos, qvel, ctrl, xfrc)
@@ -224,17 +249,36 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
     else:
         kin, vel, M, qfrc_smooth = engine.prepare_smooth(m, qpos, qvel, ctrl,
                                                          xfrc)
-        rows = make_rows(m, qpos)
-        qacc, qvel_new, _, qfrc_constraint = \
-            fused_solver.solve_constraints_euler(
-                M, qfrc_smooth, qvel, rows.J, rows.pos, rows.k, rows.b,
-                rows.d, h * m.dof_damping, h, niter=solver_iters)
-        none = qpos.new_zeros((qpos.shape[0], 0))
+        hdamp = h * m.dof_damping
+        dist = cf = qpos.new_zeros((qpos.shape[0], 0))
+        if way == "contact":
+            contacts = collide(m, kin.xpos, kin.xmat)
+            dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts)
+            lpos, kl, bl, dl = limit_rows_data(m, qpos)
+            lim_tab = m.struct_static("lim_tab",
+                                      lambda: limit_rows_static(m))
+            dist = contacts.dist
+            qacc, qvel_new, cf, qfrc_constraint = \
+                fused_solver.solve_step_raw(
+                    M, qfrc_smooth, qvel, kin.cdof, rel, contacts.normal,
+                    dist, mu3, dmask, kc, bc, dc, lpos, kl, bl,
+                    dl, hdamp, h, lim_tab=lim_tab, niter=solver_iters)
+        elif way == "rows":
+            rows = make_rows(m, qpos)
+            qacc, qvel_new, _, qfrc_constraint = \
+                fused_solver.solve_constraints_euler(
+                    M, qfrc_smooth, qvel, rows.J, rows.pos, rows.k, rows.b,
+                    rows.d, hdamp, h, niter=solver_iters)
+        else:
+            qacc = linalg.chol_solve(linalg.chol_factor(M), qfrc_smooth)
+            qfrc_constraint = torch.zeros_like(qfrc_smooth)
+            qvel_new = qvel + h * linalg.solve_psd(
+                M + torch.diag_embed(hdamp), qfrc_smooth)
         info = StepInfo(
             xpos=kin.xpos, xquat=kin.xquat, xipos=kin.xipos,
             site_xpos=kin.site_xpos, com=kin.anchor, com_vel=vel.com_vel,
             body_com_vel=engine.body_com_velocities(kin, vel),
-            contact_dist=none, contact_force=none, qacc=qacc,
+            contact_dist=dist, contact_force=cf, qacc=qacc,
             actuator_force=engine.actuator_force(m, qpos, qvel, ctrl),
             qfrc_total=qfrc_smooth + qfrc_constraint, diverged=None)
     qpos_new = integrate_pos(m, qpos, qvel_new, h)

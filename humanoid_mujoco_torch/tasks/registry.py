@@ -1,8 +1,12 @@
 """Task registry (the reference's tasks.cc GetTasks).
 
 Counterpart of humanoid_mujoco_tpu/tasks/registry.py, holding the tasks
-ported so far: "Humanoid Cap Stand" and "Swimmer". Each name selects a
-task factory, the factory of the model it plans on and, optionally, its
+ported so far, under the JAX package's names: "Acrobot", "Cartpole",
+"Humanoid Cap Stand", "Humanoid Cap Walk", "Particle", "ParticleFixed",
+"Quadruped Flat", "Quadruped Hill", "Swimmer" and "Walker" (the
+sphere-and-joint tier; the tasks with capsules, boxes, tendons, ball
+joints, gravcomp or site thrust come later). Each name selects a task
+factory, the factory of the model it plans on and, optionally, its
 home keyframe. Factories take the `dtype` and `device` keywords.
 """
 
@@ -57,10 +61,29 @@ def get_task(name: str, **kwargs) -> Task:
 
 def _register_builtin():
     from ..physics.humanoid import build_humanoid, stand_qpos
+    from .acrobot import acrobot_home_qpos, acrobot_model, acrobot_task
+    from .cartpole import cartpole_home_qpos, cartpole_model, cartpole_task
+    from .particle import particle_fixed_task, particle_model, particle_task
+    from .quadruped import (quadruped_home_qpos, quadruped_model,
+                            quadruped_task)
+    from .quadruped_hill import quadruped_hill_model, quadruped_hill_task
     from .stand import stand_task
     from .swimmer import swimmer_model, swimmer_task
+    from .walk import walk_task
+    from .walker2d import walker_model, walker_stand_qpos, walker_task
+    register("Acrobot", acrobot_task, acrobot_model, acrobot_home_qpos)
+    register("Cartpole", cartpole_task, cartpole_model,
+             cartpole_home_qpos)
     register("Humanoid Cap Stand", stand_task, build_humanoid, stand_qpos)
+    register("Humanoid Cap Walk", walk_task, build_humanoid, stand_qpos)
+    register("Particle", particle_task, particle_model)
+    register("ParticleFixed", particle_fixed_task, particle_model)
+    register("Quadruped Flat", quadruped_task, quadruped_model,
+             quadruped_home_qpos)
+    register("Quadruped Hill", quadruped_hill_task, quadruped_hill_model,
+             quadruped_home_qpos)
     register("Swimmer", swimmer_task, swimmer_model)
+    register("Walker", walker_task, walker_model, walker_stand_qpos)
 
 
 _register_builtin()

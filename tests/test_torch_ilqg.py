@@ -32,6 +32,14 @@ value:
   the returns at 1e-6. The JAX rollouts take the 32 smallest gaps, the
   port's are selection-free, so every step of the port's rollouts is
   checked first: each loaded slot is among the 32 smallest gaps;
+- the JAX package's own pendulum oracles (tests/test_ilqg.py:199-262)
+  on the port's one-hinge pendulum without contacts or rows (the step's
+  solver-free route), with their thresholds: after 12 iterations the
+  cost is below 0.25 of the zero-policy nominal, the best return is
+  near-monotone and the final angle within 0.5 of π; after 8, the
+  gains are zero on the saturated knots, the swing-up starts
+  saturated, and a perturbed state gets a corrective action at the
+  strongest free knot;
 - `ilqg_action` on perturbed states and times, and the Agent's
   `get_action` (at the state's time, at a given time, with
   `nominal_action=True`, averaged over 3 sim steps), `step` and
@@ -70,12 +78,16 @@ from humanoid_mujoco_torch.mpc import make_plan_model
 from humanoid_mujoco_torch.ops import boxqp, norms
 from humanoid_mujoco_torch.physics import humanoid as th
 from humanoid_mujoco_torch.physics import tangent
-from humanoid_mujoco_torch.physics.model import State, make_state
+from humanoid_mujoco_torch.ops.norms import NormType
+from humanoid_mujoco_torch.physics.model import (ActuatorType, JointType,
+                                                 ModelBuilder, State,
+                                                 make_state)
 from humanoid_mujoco_torch.physics.solver import finish_efc, newton_solve
 from humanoid_mujoco_torch.physics.step import forward, step
 from humanoid_mujoco_torch.planners import derivatives as tder
 from humanoid_mujoco_torch.planners import ilqg as tilqg
 from humanoid_mujoco_torch.tasks import stand_task
+from humanoid_mujoco_torch.tasks.base import TermSpec, make_task
 
 import test_torch_rl as trl
 
@@ -656,12 +668,77 @@ def check_defaults_plan():
                         make_state(m, batch=2))
 
 
+def pendulum_model(dt=0.05):
+    """tests/test_ilqg.py's pendulum: one damped hinge, a ±10 motor."""
+    b = ModelBuilder(dt=dt)
+    b.has_floor = False
+    body = b.add_body("pend", -1, mass=1.0, ipos=(0, 0, -0.5),
+                      inertia=(0.05, 0.05, 0.001))
+    jnt = b.add_joint("hinge", body, JointType.HINGE, axis=(0, 1, 0),
+                      damping=0.1)
+    b.add_actuator(jnt, ActuatorType.MOTOR, gear=1.0, ctrlrange=(-10, 10),
+                   forcerange=(-10, 10))
+    return b.finalize(dtype=F64, device="cpu")
+
+
+def pendulum_task():
+    """Drive the hinge to π (upright) with small control."""
+    def residual(m, task, state, info, ctrl):
+        return torch.cat([state.qpos[:, :1] - task.params[0],
+                          state.qvel[:, :1], ctrl], dim=-1)
+    terms = (TermSpec("angle", 1, NormType.QUADRATIC),
+             TermSpec("vel", 1, NormType.QUADRATIC),
+             TermSpec("ctrl", 1, NormType.QUADRATIC))
+    return make_task("pend-swing", terms, residual, (10.0, 0.1, 0.01),
+                     params=(np.pi,), param_names=("target",), dtype=F64,
+                     device="cpu")
+
+
+def check_pendulum_oracles():
+    """tests/test_ilqg.py:199-262 on the port: 12 iterations from the
+    hanging pendulum (horizon 30, 6 alphas, 2 solver iterations), the
+    gains read after the 8th as there."""
+    m, task = pendulum_model(), pendulum_task()
+    s0 = make_state(m)
+    cfg = tilqg.ILQGConfig(horizon=30, n_linesearch=6, solver_iters=2,
+                           deriv_solver_iters=2)
+    ps = tilqg.ilqg_init(m, cfg, s0)
+    returns, nominal0, pol8 = [], None, None
+    for i in range(12):
+        ps, info = tilqg.ilqg_plan(m, task, cfg, ps, s0)
+        if nominal0 is None:
+            nominal0 = float(info.nominal_return)
+        returns.append(float(info.best_return))
+        if i == 7:
+            pol8 = ps.policy
+    assert returns[-1] < nominal0 * 0.25, (nominal0, returns)
+    assert returns[-1] <= min(returns) * 1.01, returns
+    assert abs(float(ps.policy.qpos_nom[-1, 0]) - np.pi) < 0.5
+    # boxQP: zero gains where the control is clamped at its limit ...
+    u = pol8.u_nom.numpy().ravel()
+    K = pol8.K.numpy().reshape(len(u), -1)
+    saturated = np.abs(u) >= 10.0 - 1e-6
+    assert saturated[:3].all(), u
+    np.testing.assert_allclose(K[saturated], 0.0, atol=1e-9)
+    # ... and a corrective action at the strongest free knot
+    free = np.nonzero(~saturated)[0]
+    assert free.size > 0
+    assert np.abs(K[free]).sum() > 1.0
+    i = int(free[np.argmax(np.abs(K[free]).sum(axis=1))])
+    q, v, t = pol8.qpos_nom[i:i + 1], pol8.qvel_nom[i:i + 1], \
+        pol8.times[i:i + 1]
+    u_nom = tilqg.ilqg_action(m, pol8, q, v, t)
+    u_pert = tilqg.ilqg_action(m, pol8, q + 0.2, v + 0.5, t)
+    assert not np.allclose(u_nom.numpy(), u_pert.numpy(), atol=1e-6)
+
+
 def run_local_checks():
     """The checks that need no JAX reference process."""
     check_boxqp_kkt()
     check_backward_pass_riccati()
     check_ift_primal()
     check_defaults_plan()
+    check_pendulum_oracles()
 
 
 def run_reference_checks(references=None):

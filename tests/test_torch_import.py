@@ -44,7 +44,7 @@ print(json.dumps([names, bad]))
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
     names, bad = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 47, out.stdout
+    assert len(names) >= 54, out.stdout
     for mod in ("mpc", "tasks.registry", "tasks.swimmer", "rl.rewards",
                 "rl.env", "rl.networks", "rl.curriculum", "rl.sac",
                 "rl.ppo", "rl.train", "agent", "mpc_in_env",
@@ -52,7 +52,9 @@ print(json.dumps([names, bad]))
                 "serving", "serving.server", "serving.state_estimation",
                 "rl.evaluate", "physics.tangent", "ops.boxqp",
                 "planners.ilqg", "planners.terminal",
-                "planners.tangent_interp"):
+                "planners.tangent_interp", "tasks.acrobot",
+                "tasks.cartpole", "tasks.particle", "tasks.quadruped",
+                "tasks.quadruped_hill", "tasks.walk", "tasks.walker2d"):
         assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
 

@@ -5,7 +5,9 @@ ops, the model, the twins of the three CUDA kernels, the step, rollouts
 and the sampling planner, the Swimmer's constraint stage, step, rollout,
 transition and MPC loop, the RL env (per-env parameters), SAC and PPO,
 the serving slice (forward, the root-height search, MPPI, CEM, the
-Agent, the TCP server, policy evaluation, MPC in the env), each against
+Agent, the TCP server, policy evaluation, MPC in the env), the iLQG
+slice, the task library's sphere-and-joint tier (models, tasks,
+residuals, transitions, the four routes of the step, plans), each against
 the JAX package on the same numpy-seeded inputs, and the port's import
 isolation. This test runs them all. The kernels themselves are checked
 on the card by chip_smoke.py.
@@ -24,10 +26,11 @@ compiles outside the GIL, and JAX keeps `disable_jit` per thread. All
 are cached, so the checks that read them reuse the result. The RL
 slice's three (the env's reset and steps with B1's per-env reference,
 one SAC and one PPO train step), the serving slice's four (physics,
-planners, agent, evaluate) and the iLQG slice's two (the derivative
-path, the plan) are built in nine processes: each is a jit trace of
-the humanoid step, Python that holds the GIL, so threads would run them
-one after another.
+planners, agent, evaluate), the iLQG slice's two (the derivative
+path, the plan) and the task slice's four (the quadruped's step, the
+hill's step, the quadruped's plan, the rest) are built in thirteen
+processes: each is a jit trace of a step, Python that holds the GIL, so
+threads would run them one after another.
 """
 
 import multiprocessing
@@ -46,6 +49,7 @@ import test_torch_rollout
 import test_torch_serving
 import test_torch_step
 import test_torch_swimmer
+import test_torch_tasks
 
 torch.set_num_threads(1)
 
@@ -54,12 +58,16 @@ def test_port_matches_jax():
     names = ("env", "sac", "ppo")
     serving_names = test_torch_serving.NAMES
     ilqg_names = test_torch_ilqg.NAMES
+    task_names = test_torch_tasks.NAMES
     with ProcessPoolExecutor(
-            max_workers=len(names) + len(serving_names) + len(ilqg_names),
+            max_workers=len(names) + len(serving_names) + len(ilqg_names)
+            + len(task_names),
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
         ilqg = [procs.submit(test_torch_ilqg.reference, n)
                 for n in ilqg_names]
+        tasks = [procs.submit(test_torch_tasks.reference, n)
+                 for n in task_names]
         serving = [procs.submit(test_torch_serving.reference, n)
                    for n in serving_names]
         rl = [procs.submit(test_torch_rl.reference, n) for n in names]
@@ -84,5 +92,8 @@ def test_port_matches_jax():
             {n: f.result() for n, f in zip(serving_names, serving)})
         test_torch_ilqg.run_checks(
             {n: f.result() for n, f in zip(ilqg_names, ilqg)})
+        test_torch_tasks.run_local_checks()
+        test_torch_tasks.run_reference_checks(
+            {n: f.result() for n, f in zip(task_names, tasks)})
         swimmer.result()
     test_torch_swimmer.run_checks()

@@ -20,7 +20,8 @@ process-wide cache, so the tests share the compiled eager ops:
   gaps, which the test asserts first; float64 at 1e-9.
 
 Tolerances are max-abs error over max-abs value. Also: the divergence
-freeze, the paths of later slices raising, and the shared-memory sizing
+freeze, the 64 x 64 floor through the "contact" route, the paths of
+later slices raising, and the shared-memory sizing
 of kernel B2 (one env's working set, and the refusal of a model too
 large for a block). tests/test_torch_port.py
 runs these checks as the port's one collected test (ROADMAP.md, "Keep
@@ -45,10 +46,11 @@ from humanoid_mujoco_tpu.physics.step import step as j_step
 
 from humanoid_mujoco_torch.physics import fused_solver
 from humanoid_mujoco_torch.physics import humanoid as th
-from humanoid_mujoco_torch.physics.model import make_state
+from humanoid_mujoco_torch.physics.model import (JointType, ModelBuilder,
+                                                 make_state)
 from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                   limit_rows_static)
-from humanoid_mujoco_torch.physics.step import step
+from humanoid_mujoco_torch.physics.step import route, step
 
 torch.set_num_threads(1)
 
@@ -217,10 +219,36 @@ def check_later_slice_paths_raise():
     s_ift, _ = step(m, s, torch.zeros(1, m.nu), ift=True)
     assert torch.isfinite(s_ift.qpos).all() and torch.isfinite(
         s_ift.qvel).all()
+    # a 64 x 64 floor is over B1's heightfield gate: since slice 6 the
+    # step takes the plain smooth stage and B2 ("contact", as the JAX
+    # step), on a flat field the same step as B1's twin + B2's
     big = th.build_humanoid(device="cpu", hfield_shape=(64, 64))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        step(big, make_state(big, qpos=th.stand_qpos(big)),
-             torch.zeros(1, m.nu))
+    assert route(m) == "smooth" and route(big) == "contact"
+    u = 0.3 * torch.ones(1, m.nu)
+    s_big, info_big = step(big, make_state(big, qpos=th.stand_qpos(big)), u)
+    s_ref, info_ref = step(m, s, u)
+    torch.testing.assert_close(s_big.qvel, s_ref.qvel, rtol=0, atol=1e-6)
+    torch.testing.assert_close(info_big.contact_force,
+                               info_ref.contact_force, rtol=0, atol=1e-4)
+    # what a later slice brings still raises: gravcomp (item 9e), and a
+    # contact model whose top-k selection needs B2's per-env dmask
+    b = ModelBuilder()
+    body = b.add_body("ball", -1, mass=1.0, inertia=(0.1, 0.1, 0.1),
+                      gravcomp=1.0)
+    b.add_joint("root", body, JointType.FREE)
+    b.add_sphere(body, radius=0.1)
+    heavy = b.finalize(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9e"):
+        step(heavy, make_state(heavy), torch.zeros(1, 0))
+    b = ModelBuilder()
+    body = b.add_body("ball", -1, mass=1.0, inertia=(0.1, 0.1, 0.1))
+    b.add_joint("root", body, JointType.FREE)
+    for i in range(300):
+        b.add_sphere(body, pos=(0.001 * i, 0.0, 0.0), radius=0.1)
+    b.max_contacts = 16
+    many = b.finalize(device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        step(many, make_state(many), torch.zeros(1, 0))
     with pytest.raises(ValueError):
         step(m, s.replace(qpos=s.qpos.double()), torch.zeros(1, m.nu))
 

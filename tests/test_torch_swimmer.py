@@ -14,10 +14,12 @@ JAX package, on the same numpy-seeded inputs, float64:
   the Gaussian noise the JAX planner draws from its keys: the same qpos
   trace and costs (1e-9) and the same winners.
 
-Also the registry, and the step refusing a model with no constraint
-rows. Tolerances are max-abs error over max-abs value. The JAX
-references are built in a background thread by tests/test_torch_port.py,
-which runs these checks as the port's one collected test (ROADMAP.md,
+Also the registry (every name a JAX registry name), and a model with
+no contacts and no constraint rows stepping through the solver-free
+route as the JAX step does (20 steps, 1e-9). Tolerances are max-abs
+error over max-abs value. The JAX references are built in a background
+thread by tests/test_torch_port.py, which runs these checks as the
+port's one collected test (ROADMAP.md,
 "Keep the count of collected test items small").
 """
 
@@ -33,11 +35,13 @@ import jax.numpy as jnp
 
 from humanoid_mujoco_tpu import mpc as jmpc
 from humanoid_mujoco_tpu.ops.spline import SplineOrder as JOrder
+from humanoid_mujoco_tpu.physics.model import ModelBuilder as JModelBuilder
 from humanoid_mujoco_tpu.physics.model import make_state as j_make_state
 from humanoid_mujoco_tpu.physics.step import step as j_step
 from humanoid_mujoco_tpu.planners import policy as jpolicy
 from humanoid_mujoco_tpu.planners import sampling as jsampling
 from humanoid_mujoco_tpu.rollout import rollout_spline as j_rollout_spline
+from humanoid_mujoco_tpu.tasks import registry as jregistry
 from humanoid_mujoco_tpu.tasks import swimmer as jswimmer
 
 from humanoid_mujoco_torch import mpc
@@ -45,7 +49,7 @@ from humanoid_mujoco_torch.ops.spline import SplineOrder
 from humanoid_mujoco_torch.physics.model import (_LEAVES, JointType,
                                                  ModelBuilder, Structure,
                                                  default_qpos, make_state)
-from humanoid_mujoco_torch.physics.step import step
+from humanoid_mujoco_torch.physics.step import route, step
 from humanoid_mujoco_torch.planners import (SamplingConfig, init_policy,
                                             sampling_plan)
 from humanoid_mujoco_torch.rollout import rollout_spline
@@ -243,7 +247,11 @@ def check_mpc():
 
 
 def check_registry():
-    assert registry.list_tasks() == ["Humanoid Cap Stand", "Swimmer"]
+    assert registry.list_tasks() == [
+        "Acrobot", "Cartpole", "Humanoid Cap Stand", "Humanoid Cap Walk",
+        "Particle", "ParticleFixed", "Quadruped Flat", "Quadruped Hill",
+        "Swimmer", "Walker"]
+    assert set(registry.list_tasks()) <= set(jregistry.list_tasks())
     task = registry.get_task("Swimmer", dtype=torch.float64, device="cpu")
     assert task.name == "Swimmer" and task.nres == 7
     m = registry.task_model("Swimmer", dtype=torch.float64, device="cpu")
@@ -251,29 +259,62 @@ def check_registry():
     assert torch.equal(registry.home_qpos("Swimmer", m), default_qpos(m))
     h = registry.task_model("Humanoid Cap Stand", device="cpu")
     assert registry.home_qpos("Humanoid Cap Stand", h).shape == (h.nq,)
+    for name in registry.list_tasks():
+        t = registry.get_task(name, device="cpu")
+        assert t.name == name
+        mm = registry.task_model(name, device="cpu")
+        assert registry.home_qpos(name, mm).shape == (mm.nq,)
     with pytest.raises(KeyError):
         registry.get_task("Cartwheel")
     with pytest.raises(KeyError):
         registry.task_model("Cartwheel")
 
 
-def check_no_rows_raises():
-    """A model without contacts or limits (the Acrobot's kind) takes the
-    solver-free step of a later slice."""
-    b = ModelBuilder()
+def one_hinge(builder, **kw):
+    """A model without contacts or limits (the Acrobot's kind): one free
+    hinge, no actuator."""
+    b = builder()
     b.has_floor = False
     body = b.add_body("pole", -1, mass=1.0, inertia=(0.1, 0.1, 0.1))
     b.add_joint("hinge", body, JointType.HINGE)
-    m = b.finalize(dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        step(m, make_state(m), torch.zeros(1, 0))
+    return b.finalize(**kw)
+
+
+def check_no_rows_steps():
+    """The one-hinge model takes the step's solver-free route and
+    matches 20 JAX steps at 1e-9."""
+    m = one_hinge(ModelBuilder, dtype=torch.float64, device="cpu")
+    assert route(m) == "free"
+    jm = one_hinge(JModelBuilder, dtype=jnp.float64)
+
+    def run(s):
+        def body(s, _):
+            s2, info = j_step(jm, s, jnp.zeros(0))
+            return s2, (s2.qpos, s2.qvel, info.qacc)
+        return jax.lax.scan(body, s, None, length=STEPS)[1]
+    ref = jax.jit(run)(j_make_state(jm, qpos=np.array([0.3]),
+                                    qvel=np.array([1.2])))
+    s = make_state(m, qpos=torch.tensor([0.3], dtype=torch.float64),
+                   qvel=torch.tensor([1.2], dtype=torch.float64))
+    outs = []
+    for _ in range(STEPS):
+        s, info = step(m, s, torch.zeros(1, 0))
+        outs.append((s.qpos[0], s.qvel[0], info.qacc[0]))
+        assert info.contact_force.shape == (1, 0)
+        assert not bool(info.diverged.any())
+    for name, r, o in zip(("qpos", "qvel", "qacc"), ref, zip(*outs)):
+        o = torch.stack(o)
+        assert np.asarray(r).shape == o.shape, name
+        assert float(np.max(np.abs(np.asarray(r) - o.numpy()))) <= 1e-9 * (
+            1.0 + float(np.max(np.abs(np.asarray(r))))), name
+    assert abs(float(s.qpos[0, 0]) - (0.3 + 1.2 * STEPS * 0.002)) < 1e-12
 
 
 def run_checks():
     check_model_leaves()
     check_transition()
     check_registry()
-    check_no_rows_raises()
+    check_no_rows_steps()
     check_steps()
     check_rollout()
     check_mpc()
