@@ -77,7 +77,21 @@ the port's three paths:
   A1 standing on the flat floor and on the hill, iLQG swinging the
   cartpole up, sampling MPC pumping the acrobot (`task_loops`); and an
   Agent of each task by name at its default planner, iLQG, one
-  planner_step and one get_action (`task_agents`).
+  planner_step and one get_action (`task_agents`);
+- the estimation slice (after the task slice, before serving): one
+  update of the EKF, UKF and batch estimator on the humanoid and of the
+  EKF and UKF on Cartpole, every `step` they take recorded (B1 + B2 at
+  batch 1, 73 and 7; B3 at 1 and 9) and held against the float64 twins,
+  their kernels against their twins on those inputs, B1's and B2's time
+  at the UKF's batch of 73, the launches an update by the counters and
+  the host syncs of an EKF update (`estimation_kernels`); the JAX
+  estimator and direct tests' scenarios in float32 (the direct ones
+  also in float64, which the kernel-free direct path takes), each with
+  its threshold, ms a call, launches and idle share
+  (`estimation_loops`); the JAX serving test's shoved robot through a
+  ServingFilter, then 20 TCP requests to `MPCServer(filter="ekf")`
+  with the sampling planner, 35 B1 + 35 B2 launches each
+  (`serving_filter`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B1's and
@@ -90,8 +104,9 @@ count, plain-twin time and roofline bound per kernel; B1's and B2's
 rows also their RL and serving launches (iLQG's too) and their times
 and bounds at batch 4 and 8, B1's its per-env time and bound at B =
 4096; B3's row its Swimmer-agent launches; each kernel's row its
-times, launches and bound on the task slice's models) and the
-script's total seconds. The last
+times, launches and bound on the task slice's models, its launches on
+the estimation slice, and B1's and B2's time, plain time and bound at
+the UKF's batch of 73) and the script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -132,21 +147,22 @@ class Timer:
         self.cuda = torch.device(device).type == "cuda"
 
     def __call__(self, fn, reps: int):
-        times = []
-        for _ in range(reps):
-            if self.cuda:
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                fn()
-                b.record()
-                torch.cuda.synchronize()
-                times.append(a.elapsed_time(b))
-            else:
-                t0 = time.perf_counter()
-                fn()
-                times.append(1e3 * (time.perf_counter() - t0))
-        return float(np.median(times))
+        """The median ms of `reps` fn() calls."""
+        return float(np.median([self.once(fn)[1] for _ in range(reps)]))
+
+    def once(self, fn):
+        """(fn(), the ms it took)."""
+        if self.cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            torch.cuda.synchronize()
+            return out, a.elapsed_time(b)
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1e3 * (time.perf_counter() - t0)
 
 
 def counters_zero():
@@ -2950,6 +2966,632 @@ def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
     return rows
 
 
+# the estimation slice: the EKF, UKF and batch estimator (their steps
+# through B1 + B2 on the humanoid, B3 on Cartpole), the direct
+# optimizer (plain by design), the serving filter and
+# MPCServer(filter="ekf"), float32 on the card
+EST_EKF_UPDATES, EST_COV_UPDATES = 30, 10
+EST_UKF_UPDATES, EST_BATCH_UPDATES = 20, 12
+EST_DIRECT_T = 10
+SERVE_FILTER_UPDATES, SERVE_FILTER_SHOVE = 60, 0.4
+
+
+def est_truth(m, n, seed, noise=0.01, qpos0=None, qvel0=None, ctrl=0.0,
+              mass=1.0):
+    """The tests' truth on m's device: n steps of the port's step from
+    the stand pose (or qpos0, qvel0) under a constant control, with a
+    model `mass` times heavier; (qpos (n+1, nq), qvel (n+1, nv), noisy
+    measurements (n+1, ny), numpy seed) as float64 numpy."""
+    from humanoid_mujoco_torch.estimators.sensors import measure
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    mt = m if mass == 1.0 else m.replace(body_mass=m.body_mass * mass)
+    q = humanoid.stand_qpos(m) if qpos0 is None else qpos0
+    s = make_state(mt, qpos=q, qvel=qvel0)
+    u = torch.full((1, m.nu), ctrl, dtype=m.dtype, device=m.device)
+    qs, vs = [s.qpos], [s.qvel]
+    for _ in range(n):
+        s, _ = step(mt, s, u)
+        qs.append(s.qpos)
+        vs.append(s.qvel)
+    qs, vs = torch.cat(qs), torch.cat(vs)
+    ys = measure(m, qs, vs).double().cpu().numpy()
+    ys = ys + noise * np.random.default_rng(seed).standard_normal(ys.shape)
+    return (qs.double().cpu().numpy(), vs.double().cpu().numpy(), ys)
+
+
+def est_wrong_start(m, off):
+    """The stand pose with every joint moved by `off` into its range
+    (tests/test_torch_estimation.py's `wrong_start`; -off on the three
+    arm joints whose upper limit is 0)."""
+    from humanoid_mujoco_torch.physics import humanoid
+    q = humanoid.stand_qpos(m).double().cpu().numpy().copy()
+    hi = m.jnt_range[1:, 1].double().cpu().numpy()
+    q[7:] += np.where(hi >= off, off, -off)
+    return q
+
+
+def host_syncs(fn):
+    """(count, sites) of the host syncs one fn() call makes on the card,
+    by torch.cuda's sync debug mode (one warning a synchronizing call,
+    attributed to the calling line); (None, []) on the CPU."""
+    if not torch.cuda.is_available():
+        return None, []
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hits = [x for x in w if "synchroniz" in str(x.message)]
+    return len(hits), sorted({f"{os.path.basename(x.filename)}:{x.lineno}"
+                              for x in hits})
+
+
+def est_update_stats(fn, device, timer, reps=3, profile=True):
+    """Median ms of one call (CUDA events), and with `profile` on the
+    card its device busy ms, CUDA launches and idle share
+    (torch.profiler)."""
+    out = {"median_ms": timer(fn, reps)}
+    if profile and device != "cpu":
+        busy, n = profile_busy_ms(fn)
+        out.update(device_busy_ms=busy, cuda_launches=n,
+                   idle_share=1.0 - busy / out["median_ms"])
+    return out
+
+
+def est_steps_vs_float64(calls, m64, way, solver_iters):
+    """Each `step` an estimator took on the card (recorded with its
+    arguments) against the same step through the float64 twins on the
+    CPU (qpos, qvel, qacc within TOL); then its kernels on those inputs:
+    B1 against its float32 twin within TOL, B2 (or B3 on a "rows" model)
+    against its twins (`against_twins`: the float64 twin within TOL on
+    all but 0.5% of the batch, the float32 twin's error reported), as
+    the task phases hold them."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    from humanoid_mujoco_torch.physics.step import step
+    out = []
+    for a, kw, (s2, info) in calls:
+        m, st, ctrl = a[:3]
+        iters = kw.get("solver_iters", 8)
+        assert iters == solver_iters, (iters, solver_iters)
+        st64 = State(*(x.double().cpu() for x in (st.qpos, st.qvel,
+                                                  st.time)))
+        r2, rinfo = step(m64, st64, ctrl.double().cpu(), solver_iters=iters)
+        res = {"batch": st.qpos.shape[0],
+               "step_errs_vs_float64": {
+                   n: rel_err(r, o, n) for n, r, o in (
+                       ("qpos", r2.qpos, s2.qpos), ("qvel", r2.qvel, s2.qvel),
+                       ("qacc", rinfo.qacc, info.qacc))}}
+        assert max(res["step_errs_vs_float64"].values()) <= TOL, res
+        solve_in = route_solve_inputs(way, m, st.qpos, st.qvel, ctrl)
+        if way == "smooth":
+            ker = fused_smooth.smooth_raw(m, st.qpos, st.qvel, ctrl)
+            ref = fused_smooth.smooth_raw_reference(m, st.qpos, st.qvel,
+                                                    ctrl)
+            res["smooth_max_rel_err"] = max(
+                rel_err(r, o, n) for n, r, o in zip(fused_smooth.NAMES,
+                                                    ref, ker))
+            assert res["smooth_max_rel_err"] <= TOL, res
+            _, res["solver"] = against_twins(
+                fused_solver.solve_step_raw,
+                fused_solver.solve_step_raw_reference, solve_in,
+                {"lim_tab": limit_rows_static(m), "niter": iters},
+                ("qacc", "qvel_new", "fslot", "qfrc_constraint"))
+        else:
+            _, res["euler"] = against_twins(
+                fused_solver.solve_constraints_euler,
+                fused_solver.solve_constraints_euler_reference, solve_in,
+                {"niter": iters},
+                ("qacc", "qvel_new", "efc_force", "qfrc_constraint"))
+        out.append(res)
+    return out
+
+
+def estimation_kernels(device, timer):
+    """One update of each estimator, its `step` calls recorded and held
+    against the float64 twins (`est_steps_vs_float64`): the EKF's
+    predict (batch 1), the UKF's sigma points (batch 2·36 + 1 = 73), the
+    batch estimator's shift-in (1) and window knots (W - 1 = 7) on the
+    humanoid (B1 + B2); the EKF's and UKF's on Cartpole (B3, the generic
+    (qpos, qvel) measurement). B1, B2 and B3 launches an update by the
+    counters; the host syncs of one EKF update. Returns (the phase's
+    numbers, per kernel its launches and its time at the UKF's batch)."""
+    from humanoid_mujoco_torch import estimators as est
+    from humanoid_mujoco_torch.estimators import batch as ebatch
+    from humanoid_mujoco_torch.estimators import kalman as ekalman
+    from humanoid_mujoco_torch.estimators import unscented as eukf
+    from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
+                                               humanoid)
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    from humanoid_mujoco_torch.tasks import home_qpos, task_model
+    mods = (ekalman, eukf, ebatch)
+    out, launches = {}, {"smooth": 0, "solver": 0, "euler": 0}
+    rows = {}
+    for name in ("humanoid", "Cartpole"):
+        if name == "humanoid":
+            m = humanoid.build_humanoid(device=device)
+            m64 = humanoid.build_humanoid(dtype=torch.float64, device="cpu")
+            start = est_wrong_start(m, 0.05)
+            y = est_truth(m, 1, seed=30)[2][1]
+            kinds = ("ekf", "ukf", "batch")
+            way = "smooth"
+        else:
+            m = task_model(name, device=device)
+            m64 = task_model(name, dtype=torch.float64, device="cpu")
+            start = home_qpos(name, m).double().cpu().numpy().copy()
+            start[1] += 0.3
+            y = np.concatenate([start + [0.02, -0.05], [0.1, -0.2]])
+            kinds = ("ekf", "ukf")
+            way = "rows"
+        sensor = est.default_sensor_model(m)
+        s0 = make_state(m, qpos=start)
+        u = torch.zeros((1, m.nu), dtype=m.dtype, device=m.device)
+        yt = torch.tensor(y[None], dtype=m.dtype, device=m.device)
+        for kind in kinds:
+            if kind == "ekf":
+                cfg = est.EKFConfig()
+                f0 = est.ekf_init(m, cfg, s0)
+                upd = est.ekf_update
+            elif kind == "ukf":
+                cfg = est.UKFConfig()
+                f0 = est.ukf_init(m, cfg, s0)
+                upd = est.ukf_update
+            else:
+                cfg = est.BatchConfig()
+                f0 = est.batch_init(m, cfg, s0)
+                upd = est.batch_update
+
+            def update():
+                return upd(m, cfg, sensor, f0, u, yt)
+            update()                                    # warm-up
+            counters_zero()
+            with record(mods, "step") as rec:
+                f1, extra = update()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            n = counters()
+            key = f"{name.lower()}_{kind}"
+            leaves = [f1.qpos_win, f1.qvel_win] if kind == "batch" else [
+                f1.state.qpos, f1.state.qvel, f1.cov]
+            assert all(bool(torch.isfinite(x).all()) for x in leaves), key
+            res = {"launches_per_update": n,
+                   "steps": est_steps_vs_float64(rec.calls, m64, way,
+                                                 cfg.solver_iters)}
+            if device != "cpu":
+                nsteps = 1 + (cfg.gn_iters if kind == "batch" else 0)
+                want = ({"smooth": nsteps, "solver": nsteps, "euler": 0}
+                        if way == "smooth" else
+                        {"smooth": 0, "solver": 0, "euler": nsteps})
+                assert n == want, (key, n, want)
+            for k in launches:
+                launches[k] += n[k]
+            if key == "humanoid_ekf":
+                (res["host_syncs_per_update"],
+                 res["host_sync_sites"]) = host_syncs(update)
+            if key == "humanoid_ukf" and device != "cpu":
+                # B1 and B2 at the UKF's batch of 73 sigma points
+                (a, kw, _), = rec.calls
+                st, ctrl = a[1], a[2]
+                qpos, qvel = st.qpos, st.qvel
+                packs = fused_smooth._pack_params(m)
+                lim_tab = limit_rows_static(m)
+                B = qpos.shape[0]
+                nb, fl = smooth_cost(m, B, len(lim_tab), packs)
+                bms, bby = bound(nb, fl)
+                rows["smooth"] = {
+                    "ms_ukf73": bare_kernel_ms(
+                        "smooth", fused_smooth._smooth_launch_args(
+                            m, qpos, qvel, ctrl, None), device),
+                    "plain_ms_ukf73": timer(
+                        lambda: fused_smooth.smooth_raw_reference(
+                            m, qpos, qvel, ctrl), 3),
+                    "bound_ms_ukf73": bms, "bound_by_ukf73": bby}
+                solve_in = route_solve_inputs("smooth", m, qpos, qvel, ctrl)
+                raw = solve_in[3:8] + solve_in[9:16]
+                _, _, f_t, trace = solve_trace(solve_in[0], solve_in[1],
+                                               qvel, raw, solve_in[8],
+                                               lim_tab)
+                nb, fl = solve_cost(m, B, solve_in[8], lim_tab, f_t, trace)
+                bms, bby = bound(nb, fl)
+                rows["solver"] = {
+                    "ms_ukf73": bare_kernel_ms(
+                        "solver", fused_solver._solver_launch_args(
+                            *solve_in, lim_tab, cfg.solver_iters, 16),
+                        device),
+                    "plain_ms_ukf73": timer(
+                        lambda: fused_solver.solve_step_raw_reference(
+                            *solve_in, lim_tab=lim_tab,
+                            niter=cfg.solver_iters), 3),
+                    "bound_ms_ukf73": bms, "bound_by_ukf73": bby}
+                counters_zero()
+            out[key] = res
+    return out, launches, rows
+
+
+def estimation_loops(device, timer):
+    """tests/test_estimators.py's and tests/test_direct.py's scenarios in
+    the model's dtype (float32 on the card), numpy draws, each with its
+    threshold, its median ms a call, launches by the counters, and on
+    the card its device busy time and idle share (torch.profiler):
+    - EKF from `est_wrong_start(0.1)`: error < 0.3 err0 after 30
+      updates, a finite covariance; from the JAX test's own start (every
+      joint +0.1, three arm joints past their limits) the error ratio is
+      reported, not held (tests/test_torch_estimation.py); the
+      covariance after 10 updates from the truth: eigenvalues in
+      (-1e-9, 1) in float64 on the CPU twins, in float32 here the
+      bound's float32 analog (the smallest eigenvalue above -1e-6 of the
+      largest);
+    - UKF from `est_wrong_start(0.08)`: error < 0.5 err0 after 20
+      updates; from the JAX test's start (every joint +0.08) the outcome
+      is reported, not held: in float32 its second update leaves the
+      covariance indefinite (P - K S Kᵀ after a predict whose sigma
+      points spread at the violated limits) and the filter NaNs, as the
+      JAX UKF does in float32 on the CPU from that start through its
+      step's selection-free kernel branch (through its CPU step's top-32
+      selection it does not: tests/test_torch_estimation.py's
+      `ukf_float32_witness`), where the float64 CPU twin meets the
+      bound;
+    - the batch estimator (window 4, one iteration): error < 0.05 after
+      12 updates;
+    - direct: the denoised window (T 10, 3 iterations: the cost falls,
+      the error below 0.7 of its start); the mass scale 1.15 ± 0.05
+      from an actuated flight (6 iterations, force weight 1e-2); both
+      held in float64 on the card, reported in float32, where the
+      Gauss-Newton matrix (condition ~1e12 at the regularization 1e-4)
+      leaves no step that lowers the cost.
+    Every truth trajectory is built before the counters are set to 0;
+    on the card each case's launches equal, kernel by kernel, the sum of
+    its estimator calls' own (an EKF or UKF update 1 B1 + 1 B2, a batch
+    update 1 + gn_iters, a direct fit none)."""
+    from humanoid_mujoco_torch import estimators as est
+    from humanoid_mujoco_torch.direct import DirectConfig, direct_optimize
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import make_state
+    m = humanoid.build_humanoid(device=device)
+    dtype, dev = m.dtype, m.device
+    sensor = est.default_sensor_model(m)
+    u = torch.zeros((1, m.nu), dtype=dtype, device=dev)
+    T = EST_DIRECT_T
+    q0 = humanoid.stand_qpos(m).double().cpu().numpy()
+    q0[2] = 1.0
+    truth = {"ekf": est_truth(m, EST_EKF_UPDATES, seed=40),
+             "ekf_cov": est_truth(m, EST_COV_UPDATES, seed=41),
+             "ukf": est_truth(m, EST_UKF_UPDATES, seed=42),
+             "batch": est_truth(m, EST_BATCH_UPDATES, seed=43, noise=0.005),
+             "denoise": est_truth(m, T - 1, seed=0, noise=0.0),
+             "flight": est_truth(m, T - 1, seed=0, noise=0.0, qpos0=q0,
+                                 ctrl=0.4, mass=1.15)}
+    out, expected = {}, {}
+
+    def t(x):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    def counted(update, nsteps):
+        """`update`, each call adding the B1 + B2 launches of its
+        `nsteps` steps to `expected`."""
+        def call(*a):
+            for k in ("smooth", "solver"):
+                expected[k] += nsteps
+            return update(*a)
+        return call
+
+    def run(upd, f, ys, n):
+        for y in ys[1:n + 1]:
+            f, extra = upd(f, u, t(y)[None])
+        return f, extra
+
+    def loop(key, fn):
+        expected.update(smooth=0, solver=0, euler=0)
+        counters_zero()
+        t0 = time.perf_counter()
+        res = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = counters()
+        if device != "cpu":
+            assert res["launches"] == expected, (key, res["launches"],
+                                                 expected)
+        out[key] = res
+
+    def ekf_case():
+        qs, _, ys = truth["ekf"]
+        cfg = est.EKFConfig()
+        upd = counted(lambda f, uu, y: est.ekf_update(m, cfg, sensor, f, uu,
+                                                      y), 1)
+        res = {}
+        for label, off, sign in (("in_range_start", 0.1, None),
+                                 ("jax_test_start", 0.1, 1.0)):
+            if sign is None:
+                bad = est_wrong_start(m, off)
+            else:
+                bad = qs[0].copy()
+                bad[7:] += off
+            f, _ = run(upd, est.ekf_init(m, cfg, make_state(m, qpos=bad)),
+                       ys, EST_EKF_UPDATES)
+            err0 = np.linalg.norm(bad[7:] - qs[1, 7:])
+            err = np.linalg.norm(f.state.qpos[0, 7:].double().cpu().numpy()
+                                 - qs[EST_EKF_UPDATES, 7:])
+            res[label] = {"err0": err0, "err": err, "ratio": err / err0,
+                          "cov_finite": bool(torch.isfinite(f.cov).all())}
+            assert res[label]["cov_finite"], res
+        assert res["in_range_start"]["ratio"] < 0.3, res
+        qs, _, ys = truth["ekf_cov"]
+        f, _ = run(upd, est.ekf_init(m, cfg, make_state(m, qpos=qs[0])),
+                   ys, EST_COV_UPDATES)
+        w = np.linalg.eigvalsh(f.cov[0].double().cpu().numpy())
+        res["cov_eig_min"], res["cov_eig_max"] = float(w.min()), float(
+            w.max())
+        assert w.max() < 1.0 and w.min() > -1e-6 * w.max(), res
+        f1 = est.ekf_init(m, cfg, make_state(m, qpos=qs[0]))
+        res.update(est_update_stats(lambda: upd(f1, u, t(ys[1])[None]),
+                                    device, timer))
+        return res
+
+    def ukf_case():
+        qs, _, ys = truth["ukf"]
+        cfg = est.UKFConfig()
+        upd = counted(lambda f, uu, y: est.ukf_update(m, cfg, sensor, f, uu,
+                                                      y), 1)
+        res = {}
+        for label in ("in_range_start", "jax_test_start"):
+            if label == "in_range_start":
+                bad = est_wrong_start(m, 0.08)
+            else:
+                bad = qs[0].copy()
+                bad[7:] += 0.08
+            f0 = est.ukf_init(m, cfg, make_state(m, qpos=bad))
+            f, _ = run(upd, f0, ys, EST_UKF_UPDATES)
+            err0 = np.linalg.norm(bad[7:] - qs[1, 7:])
+            err = np.linalg.norm(f.state.qpos[0, 7:].double().cpu().numpy()
+                                 - qs[EST_UKF_UPDATES, 7:])
+            res[label] = {"err0": err0, "err": err, "ratio": err / err0,
+                          "finite": bool(torch.isfinite(f.cov).all())}
+        assert res["in_range_start"]["ratio"] < 0.5, res
+        f0 = est.ukf_init(m, cfg, make_state(m, qpos=est_wrong_start(m,
+                                                                     0.08)))
+        res.update(est_update_stats(lambda: upd(f0, u, t(ys[1])[None]),
+                                    device, timer))
+        return res
+
+    def batch_case():
+        qs, _, ys = truth["batch"]
+        cfg = est.BatchConfig(window=4, gn_iters=1)
+        upd = counted(lambda b, uu, y: est.batch_update(m, cfg, sensor, b,
+                                                        uu, y),
+                      1 + cfg.gn_iters)
+        b0 = est.batch_init(m, cfg, make_state(m, qpos=qs[0]))
+        _, e = run(upd, b0, ys, EST_BATCH_UPDATES)
+        err = np.linalg.norm(e.qpos[0, 7:].double().cpu().numpy()
+                             - qs[EST_BATCH_UPDATES, 7:])
+        res = {"err": err, "finite": bool(torch.isfinite(e.qpos).all())}
+        assert err < 0.05 and res["finite"], res
+        res.update(est_update_stats(lambda: upd(b0, u, t(ys[1])[None]),
+                                    device, timer))
+        # the default window (8, 2 iterations), the table's batch case,
+        # timed only (its profile doubles the phase)
+        cfg8 = est.BatchConfig()
+        upd8 = counted(lambda b, uu, y: est.batch_update(m, cfg8, sensor, b,
+                                                         uu, y),
+                       1 + cfg8.gn_iters)
+        b8 = est.batch_init(m, cfg8, make_state(m, qpos=qs[0]))
+        res["window8_gn2"] = est_update_stats(
+            lambda: upd8(b8, u, t(ys[1])[None]), device, timer, reps=2,
+            profile=False)
+        return res
+
+    def direct_case():
+        """Both direct cases on float32 trajectories of the card's step,
+        optimized in float32 (reported) and in float64 on the same card
+        (held: the direct path runs no kernel, so it takes any dtype)."""
+        dt = float(m.dt)
+        m64 = humanoid.build_humanoid(dtype=torch.float64, device=device)
+        sensor64 = est.default_sensor_model(m64, dtype=torch.float64)
+        qs, _, ys = truth["denoise"]
+        noisy = qs.copy()
+        noisy[:, 7:] += 0.03 * np.random.default_rng(44).standard_normal(
+            (T, 12))
+        qf, _, yf = truth["flight"]
+        res = {}
+        for label, mm, sen in (("float32", m, sensor),
+                               ("float64", m64, sensor64)):
+            def tt(x):
+                return torch.tensor(np.asarray(x), dtype=mm.dtype,
+                                    device=dev)
+            zeros = torch.zeros((T, mm.nu), dtype=mm.dtype, device=dev)
+            cfg = DirectConfig(gn_iters=3)
+
+            def denoise():
+                return direct_optimize(mm, cfg, sen, tt(noisy), tt(ys),
+                                       zeros, dt)
+            denoise()                                   # warm-up
+            r, ms = timer.once(denoise)
+            before = np.abs(noisy[1:-1, 7:] - qs[1:-1, 7:]).mean()
+            after = np.abs(r.qpos[1:-1, 7:].double().cpu().numpy()
+                           - qs[1:-1, 7:]).mean()
+            d = {"cost_initial": float(r.cost_initial),
+                 "cost": float(r.cost), "err_before": before,
+                 "err_after": after, "ratio": after / before,
+                 "cost_falls": float(r.cost) < float(r.cost_initial),
+                 "ms": ms}
+            if label == "float64" and device != "cpu":
+                # one Gauss-Newton iteration profiled (the three of the
+                # call ~42 k launches take ~50 s under the profiler)
+                cfg1 = DirectConfig(gn_iters=1)
+
+                def one():
+                    return direct_optimize(mm, cfg1, sen, tt(noisy), tt(ys),
+                                           zeros, dt)
+                _, ms1 = timer.once(one)
+                busy, n = profile_busy_ms(one)
+                d["one_iteration"] = {"ms": ms1, "device_busy_ms": busy,
+                                      "cuda_launches": n,
+                                      "idle_share": 1.0 - busy / ms1}
+            cfg6 = DirectConfig(gn_iters=6, estimate_params=("mass_scale", ),
+                                contact_forces=True, force_weight=1e-2)
+            r, ms = timer.once(lambda: direct_optimize(
+                mm, cfg6, sen, tt(qf), tt(yf), zeros + 0.4, dt))
+            w = {"cost_initial": float(r.cost_initial),
+                 "cost": float(r.cost), "mass_scale": float(r.mass_scale),
+                 "cost_falls": float(r.cost) < float(r.cost_initial),
+                 "ms": ms}
+            res[label] = {"denoise": d, "mass_scale": w}
+        d, w = res["float64"]["denoise"], res["float64"]["mass_scale"]
+        assert d["cost_falls"] and d["ratio"] < 0.7, res
+        assert w["cost_falls"] and abs(w["mass_scale"] - 1.15) < 0.05, res
+        return res
+
+    loop("ekf", ekf_case)
+    loop("ukf", ukf_case)
+    loop("batch", batch_case)
+    loop("direct", direct_case)
+    return out
+
+
+def serving_filter(device, timer, requests=SERVE_REQUESTS):
+    """tests/test_serving.py's shoved robot: a stand pushed at 0.4 m/s
+    along x, stepped by the port at zero control, its reports folded
+    into a ServingFilter; after SERVE_FILTER_UPDATES the root's x
+    velocity within 0.05 of the truth and the velocity error under 0.6
+    of the zero-velocity rebuild's. Then the Agent with the sampling
+    planner at its defaults behind MPCServer(filter="ekf"), `requests`
+    TCP requests of the shoved robot's reports after a first one that
+    initializes the filter: every reply 12 finite floats; median and
+    p90 latency; launches a request (the plan's and one EKF predict)."""
+    import threading
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    from humanoid_mujoco_torch.serving import MPCServer, ServingFilter
+    from humanoid_mujoco_torch.tasks import stand_task
+    m = humanoid.build_humanoid(device=device)
+    v0 = torch.zeros(m.nv)
+    v0[0] = SERVE_FILTER_SHOVE
+    s = make_state(m, qpos=humanoid.stand_qpos(m), qvel=v0)
+    u = torch.zeros((1, m.nu), dtype=m.dtype, device=m.device)
+    # the shoved robot's reports, stepped before the counters are zeroed
+    reports, truth = [], []
+    for _ in range(SERVE_FILTER_UPDATES):
+        q, v = s.qpos[0].cpu().numpy(), s.qvel[0].cpu().numpy()
+        reports.append(dict(joint_pos=q[7:].tolist(),
+                            joint_vel=v[6:].tolist(),
+                            ang_vel=v[3:6].tolist(), quat=q[3:7].tolist()))
+        truth.append(v[:3].astype(np.float64))
+        s, _ = step(m, s, u)
+    f = ServingFilter(m)
+    counters_zero()
+    t0 = time.perf_counter()
+    for rep in reports:
+        est_s = f.update(**rep, last_ctrl=np.zeros(12))
+    est_v = est_s.qvel[0, :3].double().cpu().numpy()
+    wall = time.perf_counter() - t0
+    truth_v = truth[-1]
+    out = {"updates": SERVE_FILTER_UPDATES, "wall_s": wall,
+           "launches": counters(), "est_root_v": est_v.tolist(),
+           "truth_root_v": truth_v.tolist(),
+           "vx_err": float(abs(est_v[0] - truth_v[0])),
+           "v_err_ratio_vs_zero": float(np.linalg.norm(est_v - truth_v)
+                                        / np.linalg.norm(truth_v))}
+    assert np.all(np.isfinite(est_v)), out
+    assert out["vx_err"] < 0.05, out
+    assert out["v_err_ratio_vs_zero"] < 0.6, out
+    if device != "cpu":
+        # the first report initializes the filter (no step), every later
+        # one runs one EKF predict
+        n = SERVE_FILTER_UPDATES - 1
+        assert out["launches"] == {"smooth": n, "solver": n, "euler": 0}, \
+            out["launches"]
+    # MPCServer(filter="ekf") over TCP
+    agent = Agent(m, stand_task(device=device), planner="sampling")
+    srv = MPCServer(agent, planner_iterations=SERVE_ITERS, port=0,
+                    filter="ekf")
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    assert srv.listening.wait(30.0), "the server did not bind"
+    srv.compute_action(**reports[0])         # initializes the filter
+    assert srv._filter is not None and srv._filter.ekf is not None
+    reqs = [json.dumps(r).encode() for r in reports[1:requests + 1]]
+    result = {}
+    counters_zero()
+    client = threading.Thread(target=serve_client,
+                              args=(srv.port, reqs, result), daemon=True)
+    client.start()
+    client.join(timeout=600.0)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = counters()
+    srv.stop()
+    server.join(timeout=30.0)
+    assert not client.is_alive() and not server.is_alive(), \
+        "the client or the server did not finish"
+    replies, ms = result["replies"], result["ms"]
+    assert len(replies) == requests, len(replies)
+    for r in replies:
+        assert isinstance(r, list) and len(r) == 12 \
+            and np.all(np.isfinite(r)), r
+    out["server"] = {
+        "planner": "sampling", "requests": requests,
+        "nsample": agent.cfg.nsample, "horizon": agent.cfg.horizon,
+        "planner_iterations": SERVE_ITERS,
+        "median_ms": float(np.median(ms)),
+        "p90_ms": float(np.percentile(ms, 90)),
+        "max_ms": float(np.max(ms)),
+        "control_hz": 1e3 / float(np.median(ms)),
+        "launches_per_request": {k: v / requests
+                                 for k, v in launches.items()},
+        "filter_time_s": float(srv._filter.state.time[0])}
+    if device != "cpu":
+        steps = SERVE_ITERS * agent.cfg.horizon + 1
+        assert launches == {"smooth": steps * requests,
+                            "solver": steps * requests, "euler": 0}, \
+            launches
+    out["launches_total"] = {k: out["launches"][k] + launches[k]
+                             for k in launches}
+    return out
+
+
+def run_estimation(device="cuda", gpu="cpu"):
+    """The estimation slice's phases: `estimation_kernels`,
+    `estimation_loops`, `serving_filter`, `estimation_walls`. Returns
+    each kernel's launches on the slice and B1's and B2's numbers at the
+    UKF's batch of 73, for the kernel table."""
+    timer = Timer(device)
+    walls, t_all = {}, time.perf_counter()
+    launches = {"smooth": 0, "solver": 0, "euler": 0}
+    t0 = time.perf_counter()
+    res, n, rows = estimation_kernels(device, timer)
+    log("estimation_kernels", gpu=gpu, tol=TOL, **res)
+    walls["estimation_kernels_s"] = time.perf_counter() - t0
+    for k in launches:
+        launches[k] += n[k]
+    t0 = time.perf_counter()
+    res = estimation_loops(device, timer)
+    log("estimation_loops", gpu=gpu, **res)
+    walls["estimation_loops_s"] = time.perf_counter() - t0
+    for r in res.values():
+        for k in launches:
+            launches[k] += r["launches"][k]
+    t0 = time.perf_counter()
+    res = serving_filter(device, timer)
+    log("serving_filter", gpu=gpu, **res)
+    walls["serving_filter_s"] = time.perf_counter() - t0
+    for k in launches:
+        launches[k] += res["launches_total"][k]
+    log("estimation_walls", **walls, total_s=time.perf_counter() - t_all)
+    for k in launches:
+        rows.setdefault(k, {})["launches_estimation"] = launches[k]
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3005,13 +3647,16 @@ def main():
     b1_rl, b2_rl, ckpt = run_rl("cuda", gpu=smi)
     table[0].update(b1_rl)
     table[1].update(b2_rl)
-    # the task slice before serving: torch.profiler drops launches after
-    # the serving phase's 75 k-launch iLQG trace
+    # the task and estimation slices before serving: torch.profiler
+    # drops launches after the serving phase's 75 k-launch iLQG trace
     task_rows = run_tasks("cuda", gpu=smi)
     for row, k in zip(table, ("smooth", "solver", "euler")):
         for name, r in task_rows[k].items():
             slug = name.lower().replace(" ", "_")
             row.update({f"{key}_{slug}": v for key, v in r.items()})
+    est_rows = run_estimation("cuda", gpu=smi)
+    for row, k in zip(table, ("smooth", "solver", "euler")):
+        row.update(est_rows[k])
     b1_sv, b2_sv, b3_sv = run_serving("cuda", gpu=smi, ckpt=ckpt)
     table[0].update(b1_sv)
     table[1].update(b2_sv)

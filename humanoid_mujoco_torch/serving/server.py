@@ -13,7 +13,13 @@ cannot be served gets {"error": "..."}.
 
 Per request: re-estimate the full state (the root-height search), run
 `planner_iterations` planner steps, reply with the policy's action
-(compute_action, controllers/mpc_utils.py:89-106).
+(compute_action, controllers/mpc_utils.py:89-106). With `filter="ekf"`
+the state comes from an EKF that persists across requests
+(serving/filtering.py::ServingFilter, the reference's estimator thread,
+app.cc:151-205): the first request initializes it through the
+root-height search, every later one folds the observation in with the
+action the previous request returned as the predict's control, so the
+root's linear velocity and height are tracked instead of re-guessed.
 
 Run it with
 
@@ -21,9 +27,8 @@ Run it with
 
 (`--planner` defaults to "ilqg", as in the JAX package; `--device cpu`
 runs the plain PyTorch path). The plan-while-acting mode
-(`async_mode=True`, the native runtime, ROADMAP item 12) and the EKF in
-the loop (`filter="ekf"`, the estimators, ROADMAP item 11) are not
-ported yet and raise.
+(`async_mode=True`, the native runtime, ROADMAP item 12) is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Optional
 import numpy as np
 
 from ..agent import Agent
+from .filtering import ServingFilter
 from .state_estimation import set_robot_state
 
 TORQUE_TO_POSITION_MULTIPLIER = 0.3   # mpc_server.py:16
@@ -49,16 +55,15 @@ class MPCServer:
                  position_mode: bool = False, port: int = DEFAULT_PORT,
                  host: str = "127.0.0.1", async_mode: bool = False,
                  filter: str = "none"):
+        if filter not in ("none", "ekf"):
+            raise ValueError(f"unknown filter {filter!r}")
         if async_mode:
             raise NotImplementedError(
                 "async_mode (the background plan loop of the native "
                 "runtime) comes with ROADMAP item 12 of the port")
-        if filter == "ekf":
-            raise NotImplementedError(
-                "filter='ekf' (the estimator in the loop) comes with "
-                "ROADMAP item 11 of the port")
-        if filter != "none":
-            raise ValueError(f"unknown filter {filter!r}")
+        self.filter_mode = filter
+        self._filter = None
+        self._last_action = None
         self.agent = agent
         self.planner_iterations = planner_iterations
         self.position_mode = position_mode
@@ -84,11 +89,18 @@ class MPCServer:
                                  f"not shape {x.shape}")
             obs.append(x)
         joint_pos, joint_vel, ang_vel, quat = obs
-        self.agent.state = set_robot_state(m, joint_pos, joint_vel, ang_vel,
-                                           quat)
+        if self.filter_mode == "ekf":
+            if self._filter is None:
+                self._filter = ServingFilter(m)
+            state = self._filter.update(joint_pos, joint_vel, ang_vel, quat,
+                                        last_ctrl=self._last_action)
+        else:
+            state = set_robot_state(m, joint_pos, joint_vel, ang_vel, quat)
+        self.agent.state = state
         for _ in range(self.planner_iterations):
             self.agent.planner_step()
         action = self.agent.get_action()
+        self._last_action = np.asarray(action)   # the EKF's predict ctrl
         if self.position_mode:
             # the torque command as joint position targets
             action = joint_pos + TORQUE_TO_POSITION_MULTIPLIER * action

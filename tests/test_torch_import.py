@@ -44,7 +44,7 @@ print(json.dumps([names, bad]))
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
     names, bad = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 54, out.stdout
+    assert len(names) >= 64, out.stdout
     for mod in ("mpc", "tasks.registry", "tasks.swimmer", "rl.rewards",
                 "rl.env", "rl.networks", "rl.curriculum", "rl.sac",
                 "rl.ppo", "rl.train", "agent", "mpc_in_env",
@@ -54,7 +54,11 @@ print(json.dumps([names, bad]))
                 "planners.ilqg", "planners.terminal",
                 "planners.tangent_interp", "tasks.acrobot",
                 "tasks.cartpole", "tasks.particle", "tasks.quadruped",
-                "tasks.quadruped_hill", "tasks.walk", "tasks.walker2d"):
+                "tasks.quadruped_hill", "tasks.walk", "tasks.walker2d",
+                "estimators", "estimators.sensors",
+                "estimators.ground_truth", "estimators.kalman",
+                "estimators.unscented", "estimators.batch", "direct",
+                "direct.optimizer", "direct.service", "serving.filtering"):
         assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
 

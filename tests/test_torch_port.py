@@ -7,8 +7,10 @@ transition and MPC loop, the RL env (per-env parameters), SAC and PPO,
 the serving slice (forward, the root-height search, MPPI, CEM, the
 Agent, the TCP server, policy evaluation, MPC in the env), the iLQG
 slice, the task library's sphere-and-joint tier (models, tasks,
-residuals, transitions, the four routes of the step, plans), each against
-the JAX package on the same numpy-seeded inputs, and the port's import
+residuals, transitions, the four routes of the step, plans), the
+estimation slice (sensors, EKF, UKF, the batch estimator, the direct
+optimizer and its service, the serving filter), each against the JAX
+package on the same numpy-seeded inputs, and the port's import
 isolation. This test runs them all. The kernels themselves are checked
 on the card by chip_smoke.py.
 
@@ -27,10 +29,16 @@ are cached, so the checks that read them reuse the result. The RL
 slice's three (the env's reset and steps with B1's per-env reference,
 one SAC and one PPO train step), the serving slice's four (physics,
 planners, agent, evaluate), the iLQG slice's two (the derivative
-path, the plan) and the task slice's four (the quadruped's step, the
-hill's step, the quadruped's plan, the rest) are built in thirteen
-processes: each is a jit trace of a step, Python that holds the GIL, so
-threads would run them one after another.
+path, the plan), the task slice's four (the quadruped's step, the
+hill's step, the quadruped's plan, the rest) and the estimation slice's
+five (the filters with the serving filter, the EKF's variants, the
+batch estimator, the direct residuals with ParticleFixed's optimize,
+the direct service) are built in eighteen processes: each is a jit trace of a
+step, Python that holds the GIL, so threads would run them one after
+another. A nineteenth runs the estimation slice's checks that need no
+JAX reference (the JAX tests' scenarios on the port, about a minute),
+and a freed worker its checks against the references, while this
+process runs the iLQG and task checks.
 """
 
 import multiprocessing
@@ -39,6 +47,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import torch
 
 import test_torch_constraints
+import test_torch_estimation
 import test_torch_fused_smooth
 import test_torch_ilqg
 import test_torch_import
@@ -59,13 +68,17 @@ def test_port_matches_jax():
     serving_names = test_torch_serving.NAMES
     ilqg_names = test_torch_ilqg.NAMES
     task_names = test_torch_tasks.NAMES
+    est_names = test_torch_estimation.NAMES
     with ProcessPoolExecutor(
             max_workers=len(names) + len(serving_names) + len(ilqg_names)
-            + len(task_names),
+            + len(task_names) + len(est_names) + 1,
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
         ilqg = [procs.submit(test_torch_ilqg.reference, n)
                 for n in ilqg_names]
+        estimation = [procs.submit(test_torch_estimation.reference, n)
+                      for n in est_names]
+        est_local = procs.submit(test_torch_estimation.run_local_checks)
         tasks = [procs.submit(test_torch_tasks.reference, n)
                  for n in task_names]
         serving = [procs.submit(test_torch_serving.reference, n)
@@ -90,10 +103,15 @@ def test_port_matches_jax():
         test_torch_serving.run_local_checks()
         test_torch_serving.run_reference_checks(
             {n: f.result() for n, f in zip(serving_names, serving)})
+        est_checks = procs.submit(
+            test_torch_estimation.run_reference_checks,
+            {n: f.result() for n, f in zip(est_names, estimation)})
         test_torch_ilqg.run_checks(
             {n: f.result() for n, f in zip(ilqg_names, ilqg)})
         test_torch_tasks.run_local_checks()
         test_torch_tasks.run_reference_checks(
             {n: f.result() for n, f in zip(task_names, tasks)})
+        est_local.result()
+        est_checks.result()
         swimmer.result()
     test_torch_swimmer.run_checks()

@@ -30,7 +30,8 @@ value:
 - `MPCServer.handle` over `socket.socketpair()` (timeouts 10 s): the
   round trip against `compute_action` of a twin agent, a malformed
   request's error reply, two coalesced requests, position mode; the
-  async and EKF modes raising;
+  async mode raising, an unknown filter's ValueError, the EKF mode
+  accepted (tests/test_torch_estimation.py serves through it);
 - `rl.evaluate.run_episodes`: 2 episodes x 5 steps at randomization
   factors 0 and 1, the policy's parameters carried from flax
   (`params_from_flax`), the reset and step draws from the JAX keys,
@@ -667,8 +668,7 @@ def check_server():
         atol=1e-6)
     with pytest.raises(NotImplementedError, match="item 12"):
         MPCServer(small_agent(), async_mode=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MPCServer(small_agent(), filter="ekf")
+    assert MPCServer(small_agent(), filter="ekf").filter_mode == "ekf"
     with pytest.raises(ValueError):
         MPCServer(small_agent(), filter="ukf")
 
