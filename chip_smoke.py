@@ -91,7 +91,22 @@ the port's three paths:
   (`estimation_loops`); the JAX serving test's shoved robot through a
   ServingFilter, then 20 TCP requests to `MPCServer(filter="ekf")`
   with the sampling planner, 35 B1 + 35 B2 launches each
-  (`serving_filter`).
+  (`serving_filter`);
+- the planner slice (after the task slice, before estimation): robust,
+  sample-gradient, gradient and iLQS at their defaults on the humanoid
+  stand (plan model, float32), 3 plan calls each (median ms by CUDA
+  events, B1, B2 and B3 launches a call by the counters, busy time and
+  idle share of one call by torch.profiler) and a 10-tick closed loop
+  beside the zero-control loop's stand cost; B1 and B2 on the robust
+  plan's 17 batch-20 steps, each env with its own wrench slice read at
+  its strides, against their twins, B1 also on a contiguous copy and at
+  a batch stride of 0, equal to the bit, each timed by `kernel_ms`
+  (`planners`); the JAX planner tests' scenarios and bounds, the
+  pendulum's in float64 (`planner_scenarios`); the parallel Riccati pass
+  against the sequential one in float64 on the humanoid's linearization
+  at T = 17, 128 and 512 (`riccati`); rl/tune's study, 3 trials of 2 PPO
+  iterations at 32 envs (`tune`); rl/videos' `record_episode` for 0.2 s
+  and the viewer's scene and page from it (`videos`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B1's and
@@ -106,7 +121,9 @@ and bounds at batch 4 and 8, B1's its per-env time and bound at B =
 4096; B3's row its Swimmer-agent launches; each kernel's row its
 times, launches and bound on the task slice's models, its launches on
 the estimation slice, and B1's and B2's time, plain time and bound at
-the UKF's batch of 73) and the script's total seconds. The last
+the UKF's batch of 73; B1's and B2's launches on the planner slice and
+their time, plain time and bound on its batch-20 wrench steps) and the
+script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -208,13 +225,14 @@ def states(m, B, seed=0):
                  for x in (qpos, qvel, ctrl))
 
 
-def smooth_cost(m, B, nlim, packs):
+def smooth_cost(m, B, nlim, packs, xfrc=False):
     """(bytes, flops) kernel B1 must move / do at batch B: each input
-    read once (the shared parameter packs once), each output written
-    once; flops counted from the kernel's loops over this structure."""
+    read once (the shared parameter packs once; with `xfrc` the per-body
+    wrenches too), each output written once; flops counted from the
+    kernel's loops over this structure."""
     s = m.struct
     K = m.ncon
-    n_in = s.nq + s.nv + s.nu
+    n_in = s.nq + s.nv + s.nu + (6 * s.nbody if xfrc else 0)
     n_out = (s.nv * s.nv + s.nv + 6 * s.nv + 13 * K + 4 * nlim
              + 13 * s.nbody + 3 * len(s.site_names) + 6 + s.nu)
     chain = int(np.asarray(s.body_dof, dtype=np.int64).sum())
@@ -1240,11 +1258,12 @@ def kernel_ms(launch, reps=20, spin_cycles=40_000_000):
 
 def profile_rows(fn):
     """(name, launches, device µs) of each CUDA kernel that one fn()
-    call ran, from torch.profiler, the busiest first."""
+    call ran, from torch.profiler, the busiest first. It traces the
+    device only: the host-side events of a 40 k-launch plan would cost
+    the trace's aggregation tens of seconds, and none is read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(ev.key, ev.count, ev.self_device_time_total)
@@ -3592,6 +3611,559 @@ def run_estimation(device="cuda", gpu="cpu"):
     return rows
 
 
+# the planner slice: the rest of the planner library on the humanoid
+# stand (plan model, float32, each planner at its JAX config defaults),
+# the JAX planner tests' scenarios, the parallel Riccati pass and the RL
+# tools
+PLANNER_CALLS, PLANNER_TICKS, PLANNER_SIM_STEPS = 3, 10, 10
+RICCATI_T = (17, 128, 512)
+RICCATI_TOL = 1e-10
+TUNE_TRIALS, TUNE_ITERS, TUNE_ENVS = 3, 2, 32
+VIDEO_SECONDS = 0.2
+
+
+def planner_suite(device):
+    """(plan model, stand task, stand state, {name: (plan(generator) ->
+    (policy, info), closed-loop plan_fn, initial policy, spline
+    order)}): robust, sample-gradient, gradient and iLQS at their
+    defaults, each plan from the stand state and the initial policy (the
+    sample-gradient and iLQS states carried across a closed loop's
+    ticks)."""
+    import dataclasses
+    from humanoid_mujoco_torch.mpc import make_plan_model
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.planners import (
+        GradientConfig, ILQSConfig, RobustConfig, SampleGradientConfig,
+        gradient_plan, ilqs_init, ilqs_plan, init_policy, robust_plan,
+        sample_gradient_init, sample_gradient_plan)
+    from humanoid_mujoco_torch.tasks import stand_task
+    m = humanoid.build_humanoid(device=device)
+    pm = make_plan_model(m, 0.02)
+    task = stand_task(device=device)
+    s0 = make_state(m, qpos=humanoid.stand_qpos(m))
+    rc, sc, gc, ic = (RobustConfig(), SampleGradientConfig(),
+                      GradientConfig(), ILQSConfig())
+    p3, p5 = init_policy(m, 3), init_policy(m, gc.nknots)
+
+    def sg_fn():
+        box = {"gs": sample_gradient_init(pm, sc)}
+
+        def fn(pm_, task_, pol, s, g):
+            pol, box["gs"], info = sample_gradient_plan(
+                pm_, task_, sc, pol, box["gs"], s, g)
+            return pol, info
+        return fn
+
+    def ilqs_fn():
+        box = {}
+
+        def fn(pm_, task_, pol, s, g):
+            ps = box.get("ps") or ilqs_init(pm_, ic, s, pol)
+            ps = dataclasses.replace(ps, spline=pol)
+            box["ps"], info = ilqs_plan(pm_, task_, ic, ps, s, g)
+            return box["ps"].spline, info
+        return fn
+
+    def robust_fn(pm_, task_, pol, s, g):
+        return robust_plan(pm_, task_, rc, pol, s, g)
+
+    def gradient_fn(pm_, task_, pol, s, g):
+        return gradient_plan(pm_, task_, gc, pol, s)
+
+    suite = {"robust": (robust_fn, lambda: robust_fn, p3, SplineOrder.ZERO),
+             "sample_gradient": (sg_fn(), sg_fn, p3, SplineOrder.ZERO),
+             "gradient": (gradient_fn, lambda: gradient_fn, p5,
+                          gc.order),
+             "ilqs": (ilqs_fn(), ilqs_fn, p3, SplineOrder.ZERO)}
+    return m, pm, task, s0, suite
+
+
+def stand_loop(m, pm, task, s0, plan_fn, policy, order, device, seed=0):
+    """PLANNER_TICKS plan -> act cycles (PLANNER_SIM_STEPS sim steps
+    each) on the stand; the stand task's mean cost a sim step."""
+    from humanoid_mujoco_torch import mpc
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    res = mpc.mpc_rollout(m, pm, task, plan_fn, policy, s0, g,
+                          PLANNER_TICKS, PLANNER_SIM_STEPS,
+                          mpc.spline_action_fn(order))
+    return float(res.costs.mean()), float(res.final_state.qpos[0, 2])
+
+
+def zero_plan(pm, task, policy, state, generator):
+    """A plan_fn that keeps the policy (the zero-control loop)."""
+    import types
+    return policy, types.SimpleNamespace(best_return=torch.zeros(
+        (), dtype=pm.dtype, device=pm.device))
+
+
+def b1_env_errs(ker, ref):
+    """Per-env errors of kernel B1's outputs against its twin's (each
+    output's largest |ker - ref| over its largest |ref|), with far-slot
+    `dist` sentinels (> 1e8) compared by identity: an env whose
+    sentinels differ (a float32 rounding at the broadphase margin) gets
+    an infinite error. Returns (errs (B,), sentinel-flip envs (B,))."""
+    from humanoid_mujoco_torch.physics import fused_smooth
+    errs, flip = [], None
+    for n, r, o in zip(fused_smooth.NAMES, ref, ker):
+        r, o = r.double(), o.double()
+        if n == "dist":
+            sr, so = r > 1e8, o > 1e8
+            flip = (sr != so).flatten(1).any(dim=1)
+            r = torch.where(sr, torch.zeros_like(r), r)
+            o = torch.where(so, torch.zeros_like(o), o)
+        if r.numel():
+            errs.append((o - r).abs().flatten(1).amax(dim=1)
+                        / (r.abs().max() + 1e-9))
+    e = torch.stack(errs).amax(dim=0)
+    return torch.where(flip, torch.full_like(e, float("inf")), e), flip
+
+
+def b2_knife_envs(args, kw, rel=1e-6, seed=9):
+    """Envs whose float64 B2 twin moves by more than TOL when the
+    per-env float inputs are scaled by 1 + `rel` noise: a contact or
+    limit row at its switch, where float32 rounding alone flips the
+    active set."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    twin = fused_solver.solve_step_raw_reference
+    a64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+           else a for a in args]
+    g = torch.Generator(device=args[0].device).manual_seed(seed)
+    B = args[0].shape[0]
+    pert = [a * (1 + rel * torch.randn(a.shape, generator=g, device=a.device,
+                                       dtype=a.dtype))
+            if i not in (8, 16, 17) and torch.is_tensor(a)
+            and a.is_floating_point() and a.ndim and a.shape[0] == B else a
+            for i, a in enumerate(a64)]
+    return per_env_err(twin(*pert, **kw), twin(*a64, **kw)) > TOL
+
+
+def planner_kernels(m, rec1, rec2, device, timer):
+    """Kernels B1 and B2 on the robust planner's wrench-perturbed
+    rollouts (batch K·R = 20, each env with its own wrench slice
+    xfrc_seq[:, t], a strided view read in place): every recorded launch
+    against its twin on the same inputs, per env within TOL, knife-edge
+    envs (B1: a far-slot sentinel flipped; B2: `b2_knife_envs`) listed,
+    not asserted on; then on the first step's inputs B1 relaunched on
+    the strided slice, on a contiguous copy, on one env's wrenches at a
+    batch stride of 0 (and its contiguous copy) and on the strided slice
+    again: equal to the bit pairwise (the launch meta cached per stride
+    tuple, `fused_smooth._smooth_meta`) and within TOL of the twin; each
+    kernel's `kernel_ms`, wrapper and plain time and bound at batch 20.
+    These launches are taken off the counters."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    n0, n1 = fused_smooth.LAUNCHES, fused_solver.LAUNCHES
+    calls1 = [c for c in rec1.calls if c[0][1].shape[0] == 20]
+    calls2 = [c for c in rec2.calls if c[0][0].shape[0] == 20]
+    assert len(calls1) == len(calls2) == 17, (len(calls1), len(calls2))
+    e1, f1, e2, k2 = [], [], [], []
+    for (a1, kw1, ker1), (a2, kw2, ker2) in zip(calls1, calls2):
+        xfrc = a1[4]
+        assert xfrc is not None and not xfrc.is_contiguous(), xfrc.stride()
+        e, flip = b1_env_errs(ker1, fused_smooth.smooth_raw_reference(*a1))
+        e1.append(e)
+        f1.append(flip)
+        ref2 = fused_solver.solve_step_raw_reference(*a2, **kw2)
+        e2.append(per_env_err(ker2, ref2))
+        # the knife-edge test only where an env is over TOL
+        k2.append(b2_knife_envs(a2, kw2) if bool((e2[-1] > TOL).any())
+                  else torch.zeros_like(e2[-1], dtype=torch.bool))
+    e1, f1, e2, k2 = (torch.stack(x) for x in (e1, f1, e2, k2))
+    out = {"steps": len(calls1), "batch": 20, "tol": TOL,
+           "xfrc_stride": list(calls1[0][0][4].stride()),
+           "b1_max_rel_err": float(e1[~f1].max()),
+           "b1_sentinel_flips": int(f1.sum()),
+           "b2_max_rel_err_held": float(e2[~k2].max()),
+           "b2_knife_edge_env_steps": int(k2.sum()),
+           "b2_knife_edge_errs": e2[k2].tolist()}
+    assert out["b1_max_rel_err"] <= TOL, out
+    assert out["b2_max_rel_err_held"] <= TOL, out
+    # the strides: strided, contiguous, batch stride 0, strided again
+    (mm, qpos, qvel, ctrl, xfrc), _, first = calls1[0]
+    x0 = xfrc[3:4].expand(20, -1, -1)
+    assert x0.stride()[0] == 0
+    runs = [fused_smooth.smooth_raw(mm, qpos, qvel, ctrl, x)
+            for x in (xfrc, xfrc.contiguous(), x0, x0.contiguous(), xfrc)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    out["strided_repeat_bitwise"] = same(runs[0], first) and same(runs[4],
+                                                                  first)
+    out["contiguous_equals_strided"] = same(runs[1], runs[0])
+    out["stride0_equals_contiguous"] = same(runs[2], runs[3])
+    e0, flip0 = b1_env_errs(runs[2], fused_smooth.smooth_raw_reference(
+        mm, qpos, qvel, ctrl, x0))
+    out["stride0_max_rel_err"] = float(e0[~flip0].max())
+    assert all(out[k] for k in ("strided_repeat_bitwise",
+                                "contiguous_equals_strided",
+                                "stride0_equals_contiguous")), out
+    assert out["stride0_max_rel_err"] <= TOL, out
+    # times at batch 20
+    a1, kw1, _ = calls1[0]
+    a2, kw2, _ = calls2[0]
+    nlim = len(limit_rows_static(m))
+    rows = ({}, {})
+    M, qf, qv = a2[:3]
+    raw = a2[3:8] + a2[9:16]
+    _, _, f, trace = solve_trace(M, qf, qv, raw, a2[8], kw2["lim_tab"])
+    bb1 = bound(*smooth_cost(m, 20, nlim, fused_smooth._pack_params(m),
+                             xfrc=True))
+    bb2 = bound(*solve_cost(m, 20, a2[8], kw2["lim_tab"], f, trace))
+    k1 = bare_kernel_ms("smooth", fused_smooth._smooth_launch_args(*a1),
+                        device)
+    k2 = bare_kernel_ms("solver", fused_solver._solver_launch_args(
+        *a2, kw2["lim_tab"], kw2["niter"], 16), device)
+    for row, k, fn, tw, (bms, by), err in (
+            (rows[0], k1, lambda: fused_smooth.smooth_raw(*a1),
+             lambda: fused_smooth.smooth_raw_reference(*a1), bb1,
+             out["b1_max_rel_err"]),
+            (rows[1], k2, lambda: fused_solver.solve_step_raw(*a2, **kw2),
+             lambda: fused_solver.solve_step_raw_reference(*a2, **kw2), bb2,
+             out["b2_max_rel_err_held"])):
+        row.update(ms_batch20_wrenches=k, wrapper_ms_batch20=timer(fn, 20),
+                   plain_ms_batch20=timer(tw, 5), bound_ms_batch20=bms,
+                   bound_by_batch20=by, max_rel_err_batch20=err)
+    out["kernel_ms"] = {"smooth": rows[0], "solver": rows[1]}
+    fused_smooth.LAUNCHES, fused_solver.LAUNCHES = n0, n1
+    return out, rows
+
+
+def pendulum_model(device, dtype=torch.float64, dt=0.05):
+    """The JAX planner tests' pendulum (tests/test_ilqg.py): one damped
+    hinge, a ±10 motor, no floor."""
+    from humanoid_mujoco_torch.physics.model import (ActuatorType,
+                                                     JointType, ModelBuilder)
+    b = ModelBuilder(dt=dt)
+    b.has_floor = False
+    body = b.add_body("pend", -1, mass=1.0, ipos=(0, 0, -0.5),
+                      inertia=(0.05, 0.05, 0.001))
+    jnt = b.add_joint("hinge", body, JointType.HINGE, axis=(0, 1, 0),
+                      damping=0.1)
+    b.add_actuator(jnt, ActuatorType.MOTOR, gear=1.0, ctrlrange=(-10, 10),
+                   forcerange=(-10, 10))
+    return b.finalize(dtype=dtype, device=device)
+
+
+def pendulum_task(device, dtype=torch.float64):
+    """Drive the hinge to π (upright) with small control."""
+    from humanoid_mujoco_torch.ops.norms import NormType
+    from humanoid_mujoco_torch.tasks.base import TermSpec, make_task
+
+    def residual(m, task, state, info, ctrl):
+        return torch.cat([state.qpos[:, :1] - task.params[0],
+                          state.qvel[:, :1], ctrl], dim=-1)
+    terms = (TermSpec("angle", 1, NormType.QUADRATIC),
+             TermSpec("vel", 1, NormType.QUADRATIC),
+             TermSpec("ctrl", 1, NormType.QUADRATIC))
+    return make_task("pend-swing", terms, residual, (10.0, 0.1, 0.01),
+                     params=(np.pi,), param_names=("target",), dtype=dtype,
+                     device=device)
+
+
+def planner_scenarios(device, pm, task, s0):
+    """tests/test_planners_extra.py:73-139 on the card, with its bounds:
+    the gradient planner on the float64 pendulum (10 iterations, below
+    0.7 of the first nominal), iLQS (the second iteration below 0.75 of
+    the first nominal), sample-gradient (3 iterations: a nonzero
+    estimate, improvement >= -1e-6) and robust on the humanoid (the JAX
+    test's float32 model: a finite return)."""
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.planners import (
+        GradientConfig, ILQGConfig, ILQSConfig, RobustConfig,
+        SampleGradientConfig, SamplingConfig, gradient_plan, ilqs_init,
+        ilqs_plan, init_policy, robust_plan, sample_gradient_init,
+        sample_gradient_plan)
+    F64 = torch.float64
+    m, ptask = pendulum_model(device), pendulum_task(device)
+    ps0 = make_state(m)
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    out = {}
+    t0 = time.perf_counter()
+    cfg = GradientConfig(nknots=5, horizon=25, n_linesearch=10,
+                         order=SplineOrder.LINEAR)
+    pol = init_policy(m, 5, dtype=F64)
+    for i in range(10):
+        pol, info = gradient_plan(m, ptask, cfg, pol, ps0)
+        if i == 0:
+            nominal0 = float(info.nominal_return)
+    out["gradient"] = {"nominal0": nominal0,
+                       "best": float(info.best_return),
+                       "improvement": float(info.improvement),
+                       "s": time.perf_counter() - t0}
+    assert out["gradient"]["best"] < 0.7 * nominal0, out
+    assert out["gradient"]["improvement"] >= -1e-6, out
+    t0 = time.perf_counter()
+    cfg = ILQSConfig(
+        sampling=SamplingConfig(nsample=6, nknots=3, horizon=10,
+                                solver_iters=3),
+        ilqg=ILQGConfig(horizon=10, n_linesearch=4, solver_iters=3,
+                        deriv_solver_iters=2))
+    ps = ilqs_init(m, cfg, ps0, init_policy(m, 3, dtype=F64))
+    ps, info = ilqs_plan(m, ptask, cfg, ps, ps0, g)
+    ps, info2 = ilqs_plan(m, ptask, cfg, ps, ps0, g)
+    out["ilqs"] = {"nominal0": float(info.nominal_return),
+                   "best1": float(info.best_return),
+                   "best2": float(info2.best_return),
+                   "s": time.perf_counter() - t0}
+    assert np.isfinite(out["ilqs"]["best1"]), out
+    assert out["ilqs"]["best2"] < 0.75 * out["ilqs"]["nominal0"], out
+    t0 = time.perf_counter()
+    cfg = SampleGradientConfig(sampling=SamplingConfig(
+        nsample=16, nknots=3, horizon=10, solver_iters=3, exploration=0.1))
+    pol, gs = init_policy(m, 3, dtype=F64), sample_gradient_init(m, cfg)
+    for _ in range(3):
+        pol, gs, info = sample_gradient_plan(m, ptask, cfg, pol, gs, ps0, g)
+    out["sample_gradient"] = {"grad_abs_sum": float(gs.grad.abs().sum()),
+                              "improvement": float(info.improvement),
+                              "s": time.perf_counter() - t0}
+    assert out["sample_gradient"]["grad_abs_sum"] > 0.0, out
+    assert out["sample_gradient"]["improvement"] >= -1e-6, out
+    t0 = time.perf_counter()
+    cfg = RobustConfig(sampling=SamplingConfig(nsample=6, nknots=3,
+                                               horizon=4, solver_iters=3),
+                       n_best=2, repetitions=2)
+    pol2, info = robust_plan(pm, task, cfg, init_policy(pm, 3), s0, g)
+    out["robust"] = {"best": float(info.best_return),
+                     "s": time.perf_counter() - t0}
+    assert pol2.values.shape == (3, pm.nu), pol2.values.shape
+    assert np.isfinite(out["robust"]["best"]), out
+    return out
+
+
+def riccati_checks(device, timer):
+    """The parallel Riccati pass against the sequential one in float64
+    on the humanoid's own linearization at the stand (plan dt 0.02, a
+    17-step zero-control nominal through the float64 twins,
+    `trajectory_derivatives`; nx 36, nu 12), its knots tiled to T = 17,
+    128 and 512, with the stand task's cost expansions and the last
+    knot's as the terminal cost: K, k, P and p within RICCATI_TOL (max
+    error over max value), each pass's median ms of 3 (CUDA events)."""
+    from humanoid_mujoco_torch.mpc import make_plan_model
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    from humanoid_mujoco_torch.planners.derivatives import (
+        trajectory_derivatives)
+    from humanoid_mujoco_torch.planners.parallel_riccati import (
+        parallel_riccati, sequential_riccati)
+    from humanoid_mujoco_torch.tasks import stand_task
+    F64 = torch.float64
+    pm = make_plan_model(humanoid.build_humanoid(dtype=F64, device=device),
+                         0.02)
+    s = make_state(pm, qpos=humanoid.stand_qpos(pm))
+    u = torch.zeros((17, pm.nu), dtype=F64, device=device)
+    qp, qv, tt = [s.qpos[0]], [s.qvel[0]], [s.time[0]]
+    with twins():
+        for t in range(17):
+            s, _ = step(pm, s, u[t:t + 1])
+            qp.append(s.qpos[0])
+            qv.append(s.qvel[0])
+            tt.append(s.time[0])
+    d = trajectory_derivatives(pm, stand_task(dtype=F64, device=device),
+                               torch.stack(qp), torch.stack(qv), u,
+                               torch.stack(tt))
+    out = {"nx": d.A.shape[1], "nu": d.B.shape[2], "tol": RICCATI_TOL}
+    for T in RICCATI_T:
+        idx = torch.arange(T, device=device) % 17
+        args = [d.A[idx], d.B[idx],
+                torch.zeros((T, d.A.shape[1]), dtype=F64, device=device),
+                d.cxx[idx], d.cxu[idx], d.cuu[idx], d.cx[idx], d.cu[idx],
+                d.cxx[-1], d.cx[-1]]
+        par, seq = parallel_riccati(*args), sequential_riccati(*args)
+        errs = {n: float((a[:T] - b).abs().max() / b.abs().max())
+                for n, a, b in zip(("K", "k", "P", "p"), par, seq)}
+        out[f"T{T}"] = {
+            "max_rel_err": errs, "P_max": float(seq[2].abs().max()),
+            "parallel_ms": timer(lambda: parallel_riccati(*args), 3),
+            "sequential_ms": timer(lambda: sequential_riccati(*args), 3)}
+        assert max(errs.values()) <= RICCATI_TOL, (T, errs)
+    return out
+
+
+class LoggedPruner:
+    """A pruner that records each decision (trial, step, value, prune)
+    of the one it wraps."""
+
+    def __init__(self, inner):
+        self.inner, self.decisions = inner, []
+
+    def should_prune(self, step, value, completed_curves):
+        d = self.inner.should_prune(step, value, completed_curves)
+        self.decisions.append({"step": step, "value": value,
+                               "completed": len(completed_curves),
+                               "prune": bool(d)})
+        return d
+
+
+def tune_phase(device):
+    """rl/tune's study, TPE with the median pruner, over TUNE_TRIALS
+    trials of the port's PPO objective at TUNE_ITERS iterations and
+    TUNE_ENVS envs (the JAX default is 16 trials x 12 iterations: the
+    depth is cut to fit the time limit), its trials logged under build/:
+    every trial ends, every pruning decision and the best parameters
+    are reported."""
+    from humanoid_mujoco_torch.rl import tune
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "tune.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    pruner = LoggedPruner(tune.MedianPruner())
+    study = tune.Study(sampler=tune.TPESampler(seed=0), pruner=pruner,
+                       log_path=path)
+    t0 = time.perf_counter()
+    best = study.optimize(tune.make_objective(
+        iters=TUNE_ITERS, n_envs=TUNE_ENVS, device=device), TUNE_TRIALS,
+        verbose=False)
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        logged = [json.loads(ln) for ln in f]
+    assert logged == study.trials and len(logged) == TUNE_TRIALS, logged
+    assert all(t["state"] in ("COMPLETE", "PRUNED") for t in logged)
+    assert np.isfinite(best["value"]), best
+    return {"trials": logged, "pruning_decisions": pruner.decisions,
+            "best": best, "wall_s": wall,
+            "cut": f"{TUNE_TRIALS} trials x {TUNE_ITERS} iterations "
+                   "(JAX default 16 x 12)"}
+
+
+def video_phase(device):
+    """rl/videos' record_episode for VIDEO_SECONDS with the zero policy
+    on the card, then the viewer's trajectory_scene (stride 10) and
+    export_html under build/. render_frame and render_trajectory need
+    cv2, which this machine lacks: they are checked on the CPU only."""
+    from humanoid_mujoco_torch.rl.videos import record_episode
+    from humanoid_mujoco_torch.viz.viewer import export_html, trajectory_scene
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    em, traj = record_episode(None, seconds=VIDEO_SECONDS, device=device)
+    rec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = trajectory_scene(em, traj, dt=0.002, stride=10)
+    path = export_html(scene, os.path.join(root, "planners_viewer.html"))
+    scene_s = time.perf_counter() - t0
+    frames = np.asarray(scene["frames"])
+    with open(path) as f:
+        html = f.read()
+    out = {"steps": int(traj.shape[0] - 1), "record_s": rec_s,
+           "scene_s": scene_s, "frames": int(frames.shape[0]),
+           "spheres": int(frames.shape[1]), "html_bytes": len(html),
+           "root_z_first_last": [float(traj[0, 2]), float(traj[-1, 2])]}
+    assert np.all(np.isfinite(traj)) and np.all(np.isfinite(frames)), out
+    assert out["steps"] == int(VIDEO_SECONDS * 500), out
+    assert html.startswith("<!DOCTYPE html>") and "const S = {" in html
+    return out
+
+
+def run_planners(device="cuda", gpu="cpu", calls=PLANNER_CALLS):
+    """The planner slice's phase `planners`: for robust, sample-gradient,
+    gradient and iLQS at their defaults on the humanoid stand, `calls`
+    plan calls (median ms by CUDA events; B1, B2, B3 launches a call by
+    the counters; device busy ms, CUDA launches and idle share of one
+    call by torch.profiler), B1 and B2 on the robust plan's batch-20
+    wrench-perturbed steps against their twins (`planner_kernels`), and
+    a PLANNER_TICKS-tick closed loop with each beside the zero-control
+    loop (reported, not gated); the JAX tests' scenarios
+    (`planner_scenarios`); `riccati_checks`; `tune_phase`;
+    `video_phase`. Returns the kernel rows' additions."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    t_all = time.perf_counter()
+    timer = Timer(device)
+    m, pm, task, s0, suite = planner_suite(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    plans, launches = {}, {"smooth": 0, "solver": 0, "euler": 0}
+    rec_out = None
+    walls = {}
+    for name, (plan_fn, make_fn, pol0, order) in suite.items():
+        t_plan = time.perf_counter()
+        plan_fn(pm, task, pol0, s0, g)                     # warm-up
+        counters_zero()
+        ms = []
+        for _ in range(calls):
+            if name == "robust" and rec_out is None:
+                with record([fused_smooth], "smooth_raw") as rec1, \
+                        record([fused_solver], "solve_step_raw") as rec2:
+                    (_, info), t = timer.once(
+                        lambda: plan_fn(pm, task, pol0, s0, g))
+                rec_out = (rec1, rec2)
+            else:
+                (_, info), t = timer.once(
+                    lambda: plan_fn(pm, task, pol0, s0, g))
+            ms.append(t)
+        n = counters()
+        for k in launches:
+            launches[k] += n[k]
+        r = {"median_ms": float(np.median(ms)), "ms": ms,
+             "launches_per_call": {**{k: v / calls for k, v in n.items()},
+                                   "total": sum(n.values()) / calls},
+             "best_return": float(info.best_return)}
+        if device != "cpu":
+            t0 = time.perf_counter()
+            busy, nl = profile_busy_ms(lambda: plan_fn(pm, task, pol0, s0,
+                                                       g))
+            r["profile_wall_s"] = time.perf_counter() - t0
+            r.update(device_busy_ms=busy, cuda_launches=nl,
+                     idle_share=1.0 - busy / r["median_ms"])
+        n0 = counters()
+        t0 = time.perf_counter()
+        cost, z = stand_loop(m, pm, task, s0, make_fn(), pol0, order, device)
+        r["loop"] = {"mean_stand_cost": cost, "final_root_z": z,
+                     "wall_s": time.perf_counter() - t0}
+        n1 = counters()
+        for k in launches:
+            launches[k] += n1[k] - n0[k]
+        plans[name] = r
+        walls[f"{name}_s"] = time.perf_counter() - t_plan
+    cost, z = stand_loop(m, pm, task, s0, zero_plan, suite["robust"][2],
+                         suite["robust"][3], device)
+    plans["zero_control_loop"] = {"mean_stand_cost": cost,
+                                  "final_root_z": z}
+    if device != "cpu":
+        for name, r in plans.items():
+            if name in suite:
+                per = r["launches_per_call"]
+                assert per["smooth"] > 0 and per["solver"] > 0, (name, per)
+                assert per["euler"] == 0, (name, per)
+    t0 = time.perf_counter()
+    kern, rows = planner_kernels(m, *rec_out, device, timer)
+    walls["planner_kernels_s"] = time.perf_counter() - t0
+    log("planners", gpu=gpu, calls=calls, ticks=PLANNER_TICKS,
+        sim_steps_per_tick=PLANNER_SIM_STEPS, plans=plans,
+        kernels_robust_batch20=kern)
+    t0 = time.perf_counter()
+    n0 = counters()
+    scen = planner_scenarios(device, pm, task, s0)
+    walls["planner_scenarios_s"] = scen["wall_s"] = time.perf_counter() - t0
+    log("planner_scenarios", gpu=gpu, **scen)
+    t0 = time.perf_counter()
+    ric = riccati_checks(device, timer)
+    walls["riccati_s"] = time.perf_counter() - t0
+    log("riccati", gpu=gpu, wall_s=walls["riccati_s"], **ric)
+    tn = tune_phase(device)
+    walls["tune_s"] = tn["wall_s"]
+    log("tune", gpu=gpu, **tn)
+    print("tune best params: " + json.dumps(tn["best"]["params"]),
+          flush=True)
+    vid = video_phase(device)
+    log("videos", gpu=gpu, **vid)
+    n1 = counters()
+    for k in launches:
+        launches[k] += n1[k] - n0[k]
+    walls["videos_s"] = vid["record_s"] + vid["scene_s"]
+    log("planners_walls", **walls, total_s=time.perf_counter() - t_all,
+        launches=launches)
+    rows[0]["launches_planners"] = launches["smooth"]
+    rows[1]["launches_planners"] = launches["solver"]
+    return rows, {"launches_planners": launches["euler"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3654,6 +4226,10 @@ def main():
         for name, r in task_rows[k].items():
             slug = name.lower().replace(" ", "_")
             row.update({f"{key}_{slug}": v for key, v in r.items()})
+    (b1_pl, b2_pl), b3_pl = run_planners("cuda", gpu=smi)
+    table[0].update(b1_pl)
+    table[1].update(b2_pl)
+    table[2].update(b3_pl)
     est_rows = run_estimation("cuda", gpu=smi)
     for row, k in zip(table, ("smooth", "solver", "euler")):
         row.update(est_rows[k])

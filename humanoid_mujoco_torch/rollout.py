@@ -10,6 +10,7 @@ kMaxReturnValue).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,14 +46,22 @@ def _finish(task: Task, residuals, diverged, s_end) -> RolloutResult:
 
 def rollout_spline(m: Model, task: Task, s0: State, times: torch.Tensor,
                    values: torch.Tensor, order: int, horizon: int,
+                   xfrc_seq: Optional[torch.Tensor] = None,
                    solver_iters: int = 8) -> RolloutResult:
     """Roll a spline policy for `horizon` steps of m.dt.
 
     s0 (B, ...), times (K,), values (B, K, nu) or shared (K, nu).
-    (The per-step wrench sequence of the JAX signature comes with the
-    robust planner's slice.)
+    xfrc_seq: optional per-step external wrenches (B, T, nbody, 6), or
+    (T, nbody, 6) shared by the batch (the robust planner's OU
+    perturbations, mjpc/trajectory.cc:147-155); step t takes
+    xfrc_seq[:, t] as it lies, a strided view (batch stride 0 when
+    shared), which kernel B1 reads in place.
     """
     lo, hi = m.act_ctrlrange[:, 0], m.act_ctrlrange[:, 1]
+    if xfrc_seq is not None:
+        if xfrc_seq.ndim == 3:
+            xfrc_seq = xfrc_seq.expand(s0.batch, *xfrc_seq.shape)
+        horizon = xfrc_seq.shape[1]
     s = s0
     residuals, diverged = [], []
     for t in range(horizon):
@@ -60,7 +69,8 @@ def rollout_spline(m: Model, task: Task, s0: State, times: torch.Tensor,
                            lo, hi)
         if ctrl.ndim == 1:
             ctrl = ctrl.expand(s.batch, -1)
-        s_new, info = step(m, s, ctrl, solver_iters=solver_iters)
+        xfrc = None if xfrc_seq is None else xfrc_seq[:, t]
+        s_new, info = step(m, s, ctrl, xfrc=xfrc, solver_iters=solver_iters)
         residuals.append(task.residual(m, s, info, ctrl))
         diverged.append(info.diverged)
         s = s_new
@@ -80,3 +90,28 @@ def rollout_actions(m: Model, task: Task, s0: State, actions: torch.Tensor,
         diverged.append(info.diverged)
         s = s_new
     return _finish(task, residuals, diverged, s)
+
+
+def ou_wrench_sequence(horizon: int, nbody: int, scale, rate: float, dt,
+                       generator: Optional[torch.Generator] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       repetitions: Optional[int] = None, dtype=None,
+                       device=None) -> torch.Tensor:
+    """Ornstein-Uhlenbeck random wrench sequences (R, T, nbody, 6), the
+    NoisyRollout perturbation model (mjpc/trajectory.cc:147-155):
+    x_{t+1} = x_t - theta x_t dt + scale sqrt(2 theta dt) w_t from x = 0,
+    theta = 1 / rate. dt: a number or the model's 0-d `dt` (no host
+    read). `noise` (R, T, nbody, 6) standard normal replaces the draw of
+    `repetitions` sequences from `generator`."""
+    if noise is None:
+        noise = torch.randn((repetitions, horizon, nbody, 6),
+                            generator=generator, dtype=dtype, device=device)
+    theta = 1.0 / max(float(rate), 1e-6)
+    gain = scale * torch.sqrt(torch.as_tensor(
+        2 * theta * dt, dtype=noise.dtype, device=noise.device))
+    x = torch.zeros_like(noise[:, 0])
+    seq = []
+    for t in range(noise.shape[1]):
+        x = x + theta * (0.0 - x) * dt + gain * noise[:, t]
+        seq.append(x)
+    return torch.stack(seq, dim=1)

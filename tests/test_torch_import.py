@@ -58,7 +58,11 @@ print(json.dumps([names, bad]))
                 "estimators", "estimators.sensors",
                 "estimators.ground_truth", "estimators.kalman",
                 "estimators.unscented", "estimators.batch", "direct",
-                "direct.optimizer", "direct.service", "serving.filtering"):
+                "direct.optimizer", "direct.service", "serving.filtering",
+                "rollout", "planners.robust", "planners.sample_gradient",
+                "planners.gradient", "planners.ilqs",
+                "planners.parallel_riccati", "rl.tune", "rl.plot",
+                "rl.videos", "viz", "viz.render", "viz.viewer"):
         assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
 

@@ -9,9 +9,11 @@ Agent, the TCP server, policy evaluation, MPC in the env), the iLQG
 slice, the task library's sphere-and-joint tier (models, tasks,
 residuals, transitions, the four routes of the step, plans), the
 estimation slice (sensors, EKF, UKF, the batch estimator, the direct
-optimizer and its service, the serving filter), each against the JAX
-package on the same numpy-seeded inputs, and the port's import
-isolation. This test runs them all. The kernels themselves are checked
+optimizer and its service, the serving filter), the rest of the planner
+library (robust, sample-gradient, gradient, iLQS, parallel Riccati,
+wrench-perturbed rollouts) and the RL tools (tune, plot, videos with
+the renderer and the viewer), each against the JAX package on the same
+numpy-seeded inputs, and the port's import isolation. This test runs them all. The kernels themselves are checked
 on the card by chip_smoke.py.
 
 One item on purpose: the tier-1 command runs pytest-xdist with
@@ -33,12 +35,16 @@ path, the plan), the task slice's four (the quadruped's step, the
 hill's step, the quadruped's plan, the rest) and the estimation slice's
 five (the filters with the serving filter, the EKF's variants, the
 batch estimator, the direct residuals with ParticleFixed's optimize,
-the direct service) are built in eighteen processes: each is a jit trace of a
-step, Python that holds the GIL, so threads would run them one after
-another. A nineteenth runs the estimation slice's checks that need no
-JAX reference (the JAX tests' scenarios on the port, about a minute),
-and a freed worker its checks against the references, while this
-process runs the iLQG and task checks.
+the direct service) and the planner slice's two (the humanoid's wrench
+rollout, robust and gradient plans; the pendulum planners, Riccati,
+the renderer and the viewer) are built in twenty processes: each is a
+jit trace of a step, Python that holds the GIL, so threads would run
+them one after another. The RL env's process also runs the JAX
+`record_episode` the videos check reads. A twenty-first runs the
+estimation slice's checks that need no JAX reference (the JAX tests'
+scenarios on the port, about a minute), and a freed worker its checks
+against the references, while this process runs the iLQG, task and
+planner-slice checks.
 """
 
 import multiprocessing
@@ -53,6 +59,7 @@ import test_torch_ilqg
 import test_torch_import
 import test_torch_math
 import test_torch_model
+import test_torch_planners
 import test_torch_rl
 import test_torch_rollout
 import test_torch_serving
@@ -69,11 +76,14 @@ def test_port_matches_jax():
     ilqg_names = test_torch_ilqg.NAMES
     task_names = test_torch_tasks.NAMES
     est_names = test_torch_estimation.NAMES
+    planner_names = test_torch_planners.NAMES
     with ProcessPoolExecutor(
             max_workers=len(names) + len(serving_names) + len(ilqg_names)
-            + len(task_names) + len(est_names) + 1,
+            + len(task_names) + len(est_names) + len(planner_names) + 1,
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
+        planners = [procs.submit(test_torch_planners.reference, n)
+                    for n in planner_names]
         ilqg = [procs.submit(test_torch_ilqg.reference, n)
                 for n in ilqg_names]
         estimation = [procs.submit(test_torch_estimation.reference, n)
@@ -98,11 +108,13 @@ def test_port_matches_jax():
         test_torch_constraints.run_checks()
         plan.result()
         test_torch_rollout.run_checks()
-        test_torch_rl.run_reference_checks(
-            {n: f.result() for n, f in zip(names, rl)})
+        rl_refs = {n: f.result() for n, f in zip(names, rl)}
+        test_torch_rl.run_reference_checks(rl_refs)
         test_torch_serving.run_local_checks()
         test_torch_serving.run_reference_checks(
             {n: f.result() for n, f in zip(serving_names, serving)})
+        # while the iLQG references finish
+        test_torch_planners.run_local_checks()
         est_checks = procs.submit(
             test_torch_estimation.run_reference_checks,
             {n: f.result() for n, f in zip(est_names, estimation)})
@@ -111,6 +123,9 @@ def test_port_matches_jax():
         test_torch_tasks.run_local_checks()
         test_torch_tasks.run_reference_checks(
             {n: f.result() for n, f in zip(task_names, tasks)})
+        test_torch_planners.run_reference_checks(
+            {n: f.result() for n, f in zip(planner_names, planners)},
+            rl_refs["env"])
         est_local.result()
         est_checks.result()
         swimmer.result()

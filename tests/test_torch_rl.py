@@ -266,10 +266,35 @@ def _jax_env():
             p.apply(jm), q, v, c, x)))(es.patch, es.phys.qpos, qvel, ctrl,
                                        xfrc)
     return dict(es=tree_np(es), es3=tree_np(es_i), obs=np.asarray(obs),
-                reset_draws=rd,
+                video=_jax_record_episode(jm), reset_draws=rd,
                 actions=actions, steps=[tree_np(s) for s in steps],
                 step_draws=sdraws, smooth_in=(qvel, ctrl, xfrc),
                 smooth=[np.asarray(x) for x in smooth])
+
+
+def _jax_record_episode(jm, seed=0):
+    """rl/videos.py's record_episode with the zero policy for 10 control
+    steps (0.02 s) on the float64 model, and the reset and step draws it
+    used (its reset key and the env rng's chain): the reference of
+    tests/test_torch_planners.py's videos check."""
+    from humanoid_mujoco_tpu.rl import videos as jvid
+    model = jenv.rl_humanoid_model
+    jenv.rl_humanoid_model = lambda: jm
+    try:
+        em, traj = jvid.record_episode(None, seconds=0.02, seed=seed)
+    finally:
+        jenv.rl_humanoid_model = model
+    key = jax.random.PRNGKey(seed)
+    # env_reset keeps the fifth key of its split, and its observation
+    # splits that once more
+    rng = jax.random.split(jax.random.split(key, 5)[4])[1]
+    sdraws = []
+    for _ in range(traj.shape[0] - 1):
+        d, rng = jax_step_draws(rng)
+        sdraws.append(tree_np(d))
+    return dict(traj=traj, hfield=np.asarray(em.hfield_data),
+                reset_draws=tree_np(jax_reset_draws(key, jm.struct)),
+                step_draws=sdraws)
 
 
 def _jax_sac():
