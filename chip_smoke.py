@@ -39,7 +39,8 @@ the port's three paths:
   MPPI, CEM and iLQG planners, an Agent at its defaults (64 samples,
   horizon 17, plan dt 0.02; iLQG's 8 line-search alphas) behind
   MPCServer (2 planner iterations) on 127.0.0.1, a client thread's 20
-  JSON requests (noisy stand-pose observations) and a malformed one:
+  JSON requests (8 for iLQG, cut for time; noisy
+  stand-pose observations) and a malformed one:
   every reply 12 finite floats, the malformed one an error, position
   mode joint_pos + 0.3 torque; median and p90 latency, control rate, B1
   and B2 launches per request, device busy and idle share of one request
@@ -51,8 +52,9 @@ the port's three paths:
   steps (batch 4 and 8) against the float64 twins, the card's float32
   linearization along its nominal against the float64 twin on the CPU,
   B1 and B2 on its own inputs at batch 4 and 8 against their twins,
-  timed (`serving_ilqg`); 0.05 s of MPC in the randomized env with the
-  default planner, iLQG (`mpc_in_env_ilqg`), and 0.2 s with sampling
+  timed (`serving_ilqg`); 0.03 s of MPC in the randomized env with the
+  default planner, iLQG (cut from 0.05 s for time; `mpc_in_env_ilqg`), and
+  0.2 s with sampling
   (`mpc_in_env`); the deterministic policy of rl_train's checkpoint on
   16 episodes x 100 steps at randomization factors 0 and 1 (`evaluate`);
   the env steps of these MPC and evaluate runs (B1 with per-env packs
@@ -106,7 +108,29 @@ the port's three paths:
   against the sequential one in float64 on the humanoid's linearization
   at T = 17, 128 and 512 (`riccati`); rl/tune's study, 3 trials of 2 PPO
   iterations at 32 envs (`tune`); rl/videos' `record_episode` for 0.2 s
-  and the viewer's scene and page from it (`videos`).
+  and the viewer's scene and page from it (`videos`);
+- the contact-rich family (the upstream humanoid as Humanoid Stand's
+  and Track's models, OP3, Panda, PickAndPlace, FreeFingers, the
+  Quadrotor and the Bimanual Handover, each on the step's "contact"
+  route: the plain smooth stage, the capsule and box narrowphase,
+  fixed-tendon limit rows, gravcomp and site actuators, then B2) runs
+  inside the task slice's phases: B2 against its twins on settled
+  states at B = 1024, 300 and 1 with its bitwise repeat, NaN env, bare
+  time and bound, and one `step_rk4` against the CPU's float64
+  step_rk4 (`task_kernels`); its launches a step (`task_routing`); a
+  1024 x 100 rollout under its task, timed once (`task_rollouts`); the
+  Quadrotor's hover, OP3 settling from its keyframe, Panda holding its
+  pose under gravcomp and an iLQG Agent on Humanoid Stand
+  (`task_loops`);
+- bench.py's handover8191x128 cell (after the planner slice, before
+  estimation): the Handover's predictive-sampling plan at 8191 x 128 x
+  4 linear knots with 1 solver iteration (3 timed plans: latency,
+  rollout steps/s, launches, idle share); one more plan's candidates
+  and tests/test_torch_contact.py's witness candidates rolled until all
+  diverge, each one's divergence step; B2 at that one iteration on the
+  first-step states of all 8191 candidates against its twins, with its
+  bare time and bound; and a 1024-sample plan at 8 iterations whose
+  candidates must all stay finite (`handover`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries B1's and
@@ -122,8 +146,10 @@ and bounds at batch 4 and 8, B1's its per-env time and bound at B =
 times, launches and bound on the task slice's models, its launches on
 the estimation slice, and B1's and B2's time, plain time and bound at
 the UKF's batch of 73; B1's and B2's launches on the planner slice and
-their time, plain time and bound on its batch-20 wrench steps) and the
-script's total seconds. The last
+their time, plain time and bound on its batch-20 wrench steps; B2's
+launches in the Handover plan and its time, plain time and bound on
+its 8191 first-step states at one iteration) and
+the script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -245,9 +271,10 @@ def smooth_cost(m, B, nlim, packs, xfrc=False):
     return 4 * (B * (n_in + n_out) + params), B * flops
 
 
-def solve_trace(M, qf, qv, raw, dmask, lim_tab):
-    """The twin's Newton solve on these inputs: (efc, x, f, trace), with
-    trace each iteration's (r, J p), both (B, ne)."""
+def solve_trace(M, qf, qv, raw, dmask, lim_tab, niter=8):
+    """The twin's Newton solve of `niter` iterations on these inputs:
+    (efc, x, f, trace), with trace each iteration's (r, J p), both
+    (B, ne)."""
     from humanoid_mujoco_torch.ops import linalg
     from humanoid_mujoco_torch.physics.solver import (finish_efc,
                                                       newton_solve,
@@ -258,7 +285,7 @@ def solve_trace(M, qf, qv, raw, dmask, lim_tab):
     Mchol = linalg.chol_factor(M)
     efc = finish_efc(rows, qv, Mchol)
     trace = []
-    x, f, _ = newton_solve(M, Mchol, qf, efc, trace=trace)
+    x, f, _ = newton_solve(M, Mchol, qf, efc, niter=niter, trace=trace)
     return efc, x, f, trace
 
 
@@ -1258,20 +1285,64 @@ def kernel_ms(launch, reps=20, spin_cycles=40_000_000):
 
 def profile_rows(fn):
     """(name, launches, device µs) of each CUDA kernel that one fn()
-    call ran, from torch.profiler, the busiest first. It traces the
-    device only: the host-side events of a 40 k-launch plan would cost
-    the trace's aggregation tens of seconds, and none is read."""
+    call ran, from torch.profiler, the busiest first (`device_rows`)."""
+    rows = device_rows(fn)
+    assert rows, "the profiler saw no device time"
+    return rows
+
+
+def device_rows(fn):
+    """`profile_rows` without its check: empty where the session
+    recorded nothing. It traces the device only: the host-side events
+    of a 40 k-launch plan would cost the trace's aggregation tens of
+    seconds, and none is read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a spin of the card (~0.5 ms) on either side of fn, left out of
+        # the rows: fn's first and last launches then lie well inside
+        # the trace
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
         fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
         torch.cuda.synchronize()
     rows = [(ev.key, ev.count, ev.self_device_time_total)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    assert rows, "the profiler saw no device time"
+            and ev.self_device_time_total > 0
+            and "spin_kernel" not in ev.key]
     return sorted(rows, key=lambda x: -x[2])
+
+
+def profile_rows_complete(fn, want, sessions=1, attempts=3):
+    """`profile_rows` of `sessions` fn() calls, each in a profiler
+    session of its own (a 30 k-launch session has dropped launches) that
+    saw `want` launches of the port's kernels; a session that dropped
+    some or recorded nothing (CUPTI has done both, now and then) is run
+    again a second later, up to `attempts` times. Returns (the rows
+    merged by kernel, the sessions run)."""
+    merged, runs = {}, 0
+    for _ in range(sessions):
+        for attempt in range(attempts):
+            if attempt:
+                time.sleep(1.0)
+            runs += 1
+            rows = device_rows(fn)
+            seen = sum(x[1] for x in rows if any(
+                n in x[0] for n in ("smooth_kernel", "solve_kernel",
+                                    "euler_kernel")))
+            if rows and seen == want:
+                break
+        else:
+            raise AssertionError(("the profiler missed launches", seen,
+                                  want, rows[:5]))
+        for key, n, t in rows:
+            c, d = merged.get(key, (0, 0.0))
+            merged[key] = (c + n, d + t)
+    return sorted(((k, c, d) for k, (c, d) in merged.items()),
+                  key=lambda x: -x[2]), runs
 
 
 def profile_busy_ms(fn):
@@ -1651,10 +1722,13 @@ def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
 # policy evaluation
 SERVE_PLANNERS = ("sampling", "mppi", "cem", "ilqg")
 SERVE_REQUESTS, SERVE_ITERS = 20, 2
+# iLQG's requests (~1.7 s each on the H100) and its MPC in the env: cut
+# from 20 and 0.05 s so that the whole script stays near half its limit
+SERVE_ILQG_REQUESTS = 8
 MPC_IN_ENV_SECONDS, MPC_IN_ENV_RF = 0.2, 0.1
 # MPC in the env with the default planner, iLQG: a shorter run than
 # sampling's (each tick is two iLQG iterations, ~10x a sampling tick)
-MPC_IN_ENV_ILQG_SECONDS = 0.05
+MPC_IN_ENV_ILQG_SECONDS = 0.03
 EVAL_RFS, EVAL_EPISODES, EVAL_STEPS = (0.0, 1.0), 16, 100
 # every n-th env step of mpc_in_env and evaluate held against the twins
 MPC_CHECK_EVERY, EVAL_CHECK_EVERY = 2, 10
@@ -1824,6 +1898,7 @@ def candidates_vs_twins(agent, device, perturbations=3):
     from humanoid_mujoco_torch.physics.step import step
     from humanoid_mujoco_torch.planners.sampling import (plan_nominal,
                                                          sample_candidates)
+    from humanoid_mujoco_torch.rollout import MAX_RETURN
     from humanoid_mujoco_torch.rollout import rollout_spline
     from humanoid_mujoco_torch.tasks import stand_task
     pm, cfg, state = agent.plan_model, agent.cfg, agent.state
@@ -2213,7 +2288,9 @@ def run_serving(device="cuda", gpu="cpu", ckpt=None,
     per = []
     for p in planners:
         t0 = time.perf_counter()
-        per.append(serve_one_planner(m, p, obs, device, requests, nsample,
+        n_req = min(requests, SERVE_ILQG_REQUESTS) if p == "ilqg" \
+            else requests
+        per.append(serve_one_planner(m, p, obs, device, n_req, nsample,
                                      horizon))
         walls[f"serving_{p}_s"] = time.perf_counter() - t0
         if "candidates_wall_s" in per[-1]:
@@ -2320,24 +2397,41 @@ def run_serving(device="cuda", gpu="cpu", ckpt=None,
 # task's model at its published size, float32
 TASK_NAMES = ("Acrobot", "Cartpole", "Humanoid Cap Walk", "Particle",
               "ParticleFixed", "Quadruped Flat", "Quadruped Hill", "Walker")
+# the contact-rich family: capsules, boxes, fixed tendons, gravcomp and
+# site actuators, every model on the step's "contact" route (the plain
+# smooth stage, collide, then B2 over all slots)
+CONTACT_MODELS = ("Humanoid Stand", "Humanoid Track", "OP3", "Panda",
+                  "PickAndPlace", "FreeFingers", "Quadrotor",
+                  "Bimanual Handover")
 TASK_ROUTES = {"Humanoid Cap Walk": "smooth", "Walker": "smooth",
                "Quadruped Flat": "smooth", "Quadruped Hill": "contact",
                "Cartpole": "rows", "Acrobot": "free", "Particle": "free",
-               "ParticleFixed": "free"}
+               "ParticleFixed": "free",
+               **dict.fromkeys(CONTACT_MODELS, "contact")}
 ROUTE_LAUNCHES = {"smooth": {"smooth": 1, "solver": 1, "euler": 0},
                   "contact": {"smooth": 0, "solver": 1, "euler": 0},
                   "rows": {"smooth": 0, "solver": 0, "euler": 1},
                   "free": {"smooth": 0, "solver": 0, "euler": 0}}
 # the models the rollouts run (ParticleFixed shares Particle's model)
 TASK_ROLLOUTS = ("Walker", "Quadruped Flat", "Quadruped Hill",
-                 "Humanoid Cap Walk", "Cartpole", "Acrobot", "Particle")
+                 "Humanoid Cap Walk", "Cartpole", "Acrobot",
+                 "Particle") + CONTACT_MODELS
+# the models whose kernels are held against their twins
+TASK_KERNELS = ("Walker", "Quadruped Flat", "Quadruped Hill",
+                "Cartpole") + CONTACT_MODELS
 TASK_SETTLE = 50
 TASK_BATCHES = (BENCH_BATCH, 300, 1)
+# the family's rollouts are timed once, by their counted run (a
+# 1024 x 100 rollout of ~3,000 launches a step takes 2-7 s); one
+# step_rk4 of the settled states at this batch
+CONTACT_RK4_BATCH = 64
 # the closed loops of the JAX package's own task tests
 # (tests/test_tasks_suite.py), at their settings; the one depth cut:
 # Cartpole's iLQG swing-up runs 8 iterations, not 20 (the float32 port
 # crosses 0.85 of the first return at the 7th, on the CPU and the card)
 CARTPOLE_ILQG_ITERS = 8
+# the family's loops: Panda's hold and iLQG on Humanoid Stand, cut
+CONTACT_HOLD_STEPS, CONTACT_ILQG_TICKS = 150, 2
 
 
 def task_states(name, m, B, seed=0):
@@ -2347,8 +2441,13 @@ def task_states(name, m, B, seed=0):
     of the range (the quadruped: the home servo targets + 0.05 N).
     Quadruped Hill's trunks stand at the keyframe height over the
     terrain at points around the hill (radius 0.5-2.5 m); Cartpole's
-    carts spread over the rail and into its limits."""
-    from humanoid_mujoco_torch.tasks import home_qpos
+    carts spread over the rail and into its limits. The contact family:
+    every hinge and slide + 0.03 N; controls the humanoid's 0.1 N, OP3's
+    keyframe servo targets + 0.05 N, the Handover's home targets + 0.02
+    N, the Quadrotor's hover thrust + 0.5 N with half the craft standing
+    on the floor, the others in the middle 40%."""
+    from humanoid_mujoco_torch.physics.model import JointType
+    from humanoid_mujoco_torch.tasks import aloha, home_qpos
     from humanoid_mujoco_torch.tasks.quadruped import home_ctrl
     from humanoid_mujoco_torch.tasks.quadruped_hill import hill_height_np
     rng = np.random.default_rng(seed)
@@ -2357,7 +2456,23 @@ def task_states(name, m, B, seed=0):
     qvel = 0.1 * rng.standard_normal((B, nv))
     lo, hi = m.act_ctrlrange.double().cpu().numpy().T
     ctrl = rng.uniform(lo + 0.3 * (hi - lo), hi - 0.3 * (hi - lo), (B, nu))
-    if name.startswith("Quadruped"):
+    if name in CONTACT_MODELS:
+        s = m.struct
+        for j in range(s.njnt):
+            if s.jnt_type[j] in (JointType.HINGE, JointType.SLIDE):
+                qpos[:, s.jnt_qadr[j]] += 0.03 * rng.standard_normal(B)
+        if name.startswith("Humanoid"):
+            ctrl = 0.1 * rng.standard_normal((B, nu))
+        elif name == "OP3":
+            ctrl = qpos[:1, 7:] + 0.05 * rng.standard_normal((B, nu))
+        elif name == "Bimanual Handover":
+            ctrl = aloha.home_ctrl(m).double().cpu().numpy() \
+                + 0.02 * rng.standard_normal((B, nu))
+        elif name == "Quadrotor":
+            ctrl = 1.325 * 9.81 / 4 + 0.5 * rng.standard_normal((B, 4))
+            qpos[: B // 2, 2] = 0.019
+        ctrl = np.clip(ctrl, lo, hi)
+    elif name.startswith("Quadruped"):
         qpos[:, 7:] += 0.03 * rng.standard_normal((B, 12))
         ctrl = home_ctrl(m).double().cpu().numpy() \
             + 0.05 * rng.standard_normal((B, 12))
@@ -2475,6 +2590,34 @@ def bare_kernel_ms(name, launch_args, device):
     return kernel_ms(lambda: kernels.launch(name, *ptrs))
 
 
+def b2_row(m, solve_in, lim_tab, device, timer, max_abs_err, niter=8):
+    """Kernel B2's numbers for the kernel table on `solve_in` (the 18
+    arguments of solve_step_raw before lim_tab) at `niter` Newton
+    iterations: its device time a launch (`bare_kernel_ms`), the
+    wrapper's and the twin's time, the bound from the twin's iterations
+    on these inputs (`solve_cost`), and the envs with a limit row at its
+    activation boundary (`knife_edges`)."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    B = solve_in[0].shape[0]
+    kw = {"lim_tab": lim_tab, "niter": niter}
+    efc, x, f_t, trace = solve_trace(
+        solve_in[0], solve_in[1], solve_in[2],
+        solve_in[3:8] + solve_in[9:16], solve_in[8], lim_tab, niter)
+    nbytes, flops = solve_cost(m, B, solve_in[8], lim_tab, f_t, trace)
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {
+        "ms": bare_kernel_ms("solver", fused_solver._solver_launch_args(
+            *solve_in, lim_tab, niter, 16), device),
+        "wrapper_ms": timer(
+            lambda: fused_solver.solve_step_raw(*solve_in, **kw), 20),
+        "plain_ms": timer(
+            lambda: fused_solver.solve_step_raw_reference(*solve_in, **kw),
+            3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+        "max_abs_err": max_abs_err,
+        "knife_edge_envs": knife_edges(efc, x, len(lim_tab))}
+
+
 def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
     """The kernels of this model's route against their twins on settled
     states at B = 1024, 300 and 1 (B1 within TOL of its float32 twin, B2
@@ -2526,6 +2669,10 @@ def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
     B = qpos.shape[0]
     solve_in = route_solve_inputs(way, m, qpos, qvel, ctrl)
 
+    if name in CONTACT_MODELS:
+        out["rk4"] = rk4_vs_float64(
+            name, m, *(x[:CONTACT_RK4_BATCH] for x in main))
+
     def model_states(mm, n):
         return tuple(x[:n].clone() for x in main)
     if device != "cpu" and way == "smooth":
@@ -2555,22 +2702,8 @@ def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "max_abs_err": out[f"batch_{B}"]["smooth_max_abs_err"]}
     if way in ("smooth", "contact"):
-        raw = solve_in[3:8] + solve_in[9:16]
-        _, _, f_t, trace = solve_trace(solve_in[0], solve_in[1], qvel, raw,
-                                       solve_in[8], lim_tab)
-        nbytes, flops = solve_cost(m, B, solve_in[8], lim_tab, f_t, trace)
-        bound_ms, bound_by = bound(nbytes, flops)
-
-        def b2():
-            return fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
-        rows["solver"] = {
-            "ms": bare_kernel_ms("solver", fused_solver._solver_launch_args(
-                *solve_in, lim_tab, 8, 16), device),
-            "wrapper_ms": timer(b2, 20),
-            "plain_ms": timer(lambda: fused_solver.solve_step_raw_reference(
-                *solve_in, lim_tab=lim_tab), 3),
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "max_abs_err": out[f"batch_{B}"]["solver"]["max_abs_err"]}
+        rows["solver"] = b2_row(m, solve_in, lim_tab, device, timer,
+                                out[f"batch_{B}"]["solver"]["max_abs_err"])
     if way == "rows":
         _, _, f_t, trace = rows_trace(*solve_in[:8])
         nbytes, flops = rows_cost(solve_in[3], f_t, trace)
@@ -2655,26 +2788,27 @@ def task_rollout(name, m, B, horizon, seed=6):
 
 
 def task_rollouts(device, timer, B, horizon, profile="Walker",
-                  short=3):
+                  short=2, sessions=5):
     """The 1024 x 100 rollout of each model under its task: ms (CUDA
-    events, median of 3 after the counted run), steps/s, kernel launches
+    events, median of 3 after the counted run; the contact family's
+    counted run), steps/s, kernel launches
     per step (counters), and for `profile` the device busy time, all
     launches and the idle share of one rollout (torch.profiler). For
-    every model also a `short`-step rollout of the same batch under the
-    profiler: CUDA launches and device busy time a step, the idle share
-    against the full rollout's time a step, and the three busiest
-    kernels."""
+    every model also `sessions` `short`-step rollouts of the same batch
+    under the profiler, each in its own session
+    (`profile_rows_complete`): CUDA launches and device busy time a
+    step, the idle share against the full rollout's time a step, and the
+    three busiest kernels."""
     from humanoid_mujoco_torch.tasks import task_model
     out, launches = {}, {}
     for name in TASK_ROLLOUTS:
         m = task_model(name, device=device)
         rollout = task_rollout(name, m, B, horizon)
         counters_zero()
-        res = rollout()                   # counted, and the warm-up
-        if device != "cpu":
-            torch.cuda.synchronize()
+        res, ms = timer.once(rollout)     # counted, and the warm-up
         n = counters()
-        ms = timer(rollout, 3)
+        if name not in CONTACT_MODELS:
+            ms = timer(rollout, 3)
         launches[name] = n
         r = {"batch": B, "horizon": horizon, "ms": ms,
              "steps_per_s": B * horizon / (ms * 1e-3),
@@ -2690,17 +2824,15 @@ def task_rollouts(device, timer, B, horizon, profile="Walker",
                          idle_share=1.0 - busy / ms)
             few = task_rollout(name, m, B, short)
             few()
-            rows = profile_rows(few)
+            rows, runs = profile_rows_complete(few, short * sum(
+                ROUTE_LAUNCHES[TASK_ROUTES[name]].values()), sessions)
+            steps = short * sessions
             busy = sum(x[2] for x in rows) / 1e3
-            seen = sum(x[1] for x in rows if any(
-                k in x[0] for k in ("smooth_kernel", "solve_kernel",
-                                    "euler_kernel")))
-            assert seen == sum(ROUTE_LAUNCHES[TASK_ROUTES[name]].values()) \
-                * short, (name, "the profiler missed launches", rows[:5])
             r["short"] = {
-                "horizon": short, "busy_ms_per_step": busy / short,
-                "cuda_launches_per_step": sum(x[1] for x in rows) / short,
-                "idle_share": 1.0 - busy / short / (ms / horizon),
+                "horizon": steps, "profiler_sessions": runs,
+                "busy_ms_per_step": busy / steps,
+                "cuda_launches_per_step": sum(x[1] for x in rows) / steps,
+                "idle_share": 1.0 - busy / steps / (ms / horizon),
                 "top": [(k[:60], c, t / 1e3) for k, c, t in rows[:3]]}
         out[name] = r
         assert bool(torch.isfinite(res.total_return).all()), name
@@ -2894,15 +3026,16 @@ def task_agents(device):
 
 
 def task_occupancy():
-    """Each new model's kernel occupancy at the block shapes the wrappers
-    launch: B1 and B2 on Walker and Quadruped Flat, B2 on Quadruped
-    Hill, B3 on Cartpole's rows."""
+    """Each task model's kernel occupancy at the block shapes the
+    wrappers launch (TASK_KERNELS): B1 and B2 on Walker and Quadruped
+    Flat, B2 on Quadruped Hill and the contact family, B3 on Cartpole's
+    rows."""
     from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
     from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                       limit_rows_static)
     from humanoid_mujoco_torch.tasks import task_model
     out = {}
-    for name in ("Walker", "Quadruped Flat", "Quadruped Hill", "Cartpole"):
+    for name in TASK_KERNELS:
         m = task_model(name, device="cuda")
         nlim = len(limit_rows_static(m))
         occ = {}
@@ -2920,17 +3053,18 @@ def task_occupancy():
 
 def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
               horizon=BENCH_HORIZON, batches=TASK_BATCHES):
-    """The task slice's phases: `task_kernels` (each new model's kernels
-    against their twins, `task_kernel_checks`), `task_routing`,
-    `task_rollouts`, `task_loops` (the JAX task tests' closed loops),
-    `task_agents`, `task_walls`. Returns each kernel's numbers on the new
-    models for the kernel table."""
+    """The task slices' phases, the contact family's models among
+    them: `task_kernels` (each model's kernels against their twins,
+    `task_kernel_checks`), `task_routing`, `task_rollouts`, `task_loops`
+    (the JAX task tests' closed loops and the family's), `task_agents`,
+    `task_walls`. Returns each kernel's numbers on these models for the
+    kernel table."""
     from humanoid_mujoco_torch.tasks import task_model
     timer = Timer(device)
     walls, t_all = {}, time.perf_counter()
     rows = {"smooth": {}, "solver": {}, "euler": {}}
     t0 = time.perf_counter()
-    for name in ("Walker", "Quadruped Flat", "Quadruped Hill", "Cartpole"):
+    for name in TASK_KERNELS:
         m = task_model(name, device=device)
         res, krows = task_kernel_checks(name, m, device, timer, batches)
         log("task_kernels", gpu=gpu, model=name, tol=TOL, **res)
@@ -2938,7 +3072,8 @@ def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
             rows[k][name] = r
     walls["task_kernels_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    log("task_routing", **{n: task_routing(n, device) for n in TASK_NAMES})
+    log("task_routing", **{n: task_routing(n, device)
+                           for n in TASK_NAMES + CONTACT_MODELS})
     walls["task_routing_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ro, ro_launches = task_rollouts(device, timer, B, horizon)
@@ -2954,7 +3089,13 @@ def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
              lambda: quadruped_settles(device, hill=True)),
             ("cartpole_ilqg_swingup", "Cartpole",
              lambda: cartpole_swingup(device)),
-            ("acrobot_pumps", "Acrobot", lambda: acrobot_pumps(device))):
+            ("acrobot_pumps", "Acrobot", lambda: acrobot_pumps(device)),
+            ("quadrotor_hover", "Quadrotor",
+             lambda: quadrotor_hovers(device)),
+            ("op3_settles", "OP3", lambda: op3_settles(device)),
+            ("panda_gravcomp_hold", "Panda", lambda: panda_holds(device)),
+            ("humanoid_stand_ilqg", "Humanoid Stand",
+             lambda: humanoid_stand_ilqg(device))):
         counters_zero()
         t0 = time.perf_counter()
         loops[key] = fn()
@@ -4164,6 +4305,351 @@ def run_planners(device="cuda", gpu="cpu", calls=PLANNER_CALLS):
     return rows, {"launches_planners": launches["euler"]}
 
 
+# bench.py's handover8191x128 cell: predictive sampling at its settings
+# (one solver iteration, under which every 128-step candidate of the
+# Handover diverges by step ~30, in the JAX kernel branch as in the
+# port: tests/test_torch_contact.py's witness); then a 1024-sample plan
+# at the step's default 8 iterations, whose candidates must stay finite
+HANDOVER_N, HANDOVER_H, HANDOVER_K = 8191, 128, 4
+HANDOVER_CALLS, HANDOVER_CHECK_N = 3, 1024
+# the profiled plans: 4 sessions of a 4-step plan of the same width
+HANDOVER_PROFILE_H, HANDOVER_PROFILE_SESSIONS = 4, 4
+# the divergence witness (tests/test_torch_contact.py, `witness_inputs`:
+# numpy seed 12, 6 candidates of the cell, candidate 0 the nominal); the
+# first diverged step of each in the JAX kernel branch's float64 rollout
+# at 1 solver iteration, which that test holds the port's float64 step
+# to; the card's float32 steps must lie within WITNESS_SLACK of them
+WITNESS_SEED, WITNESS_N, WITNESS_SLACK = 12, 6, 2
+WITNESS_JAX_STEPS = (30, 27, 27, 28, 27, 28)
+
+
+def rk4_vs_float64(name, m, qpos, qvel, ctrl):
+    """One `step_rk4` (plain PyTorch on `forward`, with its top-k slot
+    selection) of these states against the CPU's float64 step_rk4 on the
+    same inputs (`per_env_err`). An env over TOL is ill-conditioned where
+    the float64 result itself moves over TOL when the state moves by
+    1e-7 N in the tangent space (float32's rounding of the inputs: a slot
+    at the top-k cut, an active set at its boundary) or when its solves
+    run 30 Newton iterations instead of 8 (a solve the 8 iterations leave
+    unconverged, where float32 and float64 iterate apart): reported, not
+    held; the others over TOL may be at most 0.5% of the batch."""
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.physics.step import step_rk4
+    from humanoid_mujoco_torch.physics.tangent import state_add
+    from humanoid_mujoco_torch.tasks import task_model
+    B = qpos.shape[0]
+    t = torch.zeros(B, dtype=m.dtype, device=m.device)
+    s2, _ = step_rk4(m, State(qpos, qvel, t), ctrl)
+    m64 = task_model(name, dtype=torch.float64, device="cpu")
+    q64, v64, t64, u64 = (x.double().cpu() for x in (qpos, qvel, t, ctrl))
+    r2, _ = step_rk4(m64, State(q64, v64, t64), u64)
+
+    def err(a, b):
+        return per_env_err((a.qpos.cpu(), a.qvel.cpu()), (b.qpos, b.qvel))
+    e = err(s2, r2)
+    over = ~(e <= TOL)
+    edge = unconverged = torch.zeros_like(over)
+    if bool(over.any()):
+        g = torch.Generator().manual_seed(3)
+        dx = 1e-7 * torch.randn((B, 2 * m.nv), generator=g,
+                                dtype=torch.float64)
+        r3, _ = step_rk4(m64, State(state_add(m64, q64, dx[:, :m.nv]),
+                                    v64 + dx[:, m.nv:], t64), u64)
+        edge = ~(err(r3, r2) <= TOL)
+        r4, _ = step_rk4(m64, State(q64, v64, t64), u64, solver_iters=30)
+        unconverged = ~(err(r4, r2) <= TOL)
+    ill = edge | unconverged
+    out = {"batch": B, "envs_over_tol": int(over.sum()),
+           "knife_edge_envs": int((over & edge).sum()),
+           "unconverged_envs": int((over & unconverged).sum()),
+           "max_err": float(e.max()), "median_err": float(e.median()),
+           "max_err_well_conditioned": float(e[~ill].max())}
+    assert int((over & ~ill).sum()) <= B // 200, (name, out)
+    return out
+
+
+def witness_noise(nu):
+    """The divergence witness's standard-normal knots (WITNESS_N,
+    HANDOVER_K, nu), numpy seed WITNESS_SEED; candidate 0 is the
+    nominal (sample_candidates zeroes its noise)."""
+    rng = np.random.default_rng(WITNESS_SEED)
+    return rng.standard_normal((WITNESS_N, HANDOVER_K, nu))
+
+
+def divergence_steps(m, cfg, nominal, cands, s0, keep_step=1):
+    """Each candidate's first diverged step (-1 for none) in a rollout
+    of `cands` (N, K, nu) from s0 through `step` at cfg.solver_iters,
+    stopped once every candidate has diverged (or at cfg.horizon); and
+    the states and controls of step `keep_step` (the plan's rollout, as
+    `rollout_spline` runs it)."""
+    from humanoid_mujoco_torch.ops.spline import spline_sample
+    from humanoid_mujoco_torch.physics.model import State
+    from humanoid_mujoco_torch.physics.step import step
+    N = cands.shape[0]
+    lo, hi = m.act_ctrlrange[:, 0], m.act_ctrlrange[:, 1]
+    s = State(qpos=s0.qpos.expand(N, -1).contiguous(),
+              qvel=s0.qvel.expand(N, -1).contiguous(),
+              time=s0.time.expand(N).contiguous())
+    first = torch.full((N,), -1, dtype=torch.long, device=m.device)
+    kept = None
+    for t in range(cfg.horizon):
+        u = torch.clamp(spline_sample(nominal.times, cands, s.time,
+                                      cfg.order), lo, hi)
+        if t == keep_step:
+            kept = (s.qpos, s.qvel, u)
+        s, info = step(m, s, u, solver_iters=cfg.solver_iters)
+        first = torch.where((first < 0) & info.diverged,
+                            torch.full_like(first, t), first)
+        if t >= keep_step and bool((first >= 0).all()):
+            break
+    return first, t + 1, kept
+
+
+def handover_plan(device, timer, nsample=HANDOVER_N, horizon=HANDOVER_H,
+                  calls=HANDOVER_CALLS, profile_horizon=HANDOVER_PROFILE_H,
+                  check_nsample=HANDOVER_CHECK_N):
+    """bench.py's handover8191x128 cell on the port: `sampling_plan` on
+    the Bimanual Handover at nsample 8191 x horizon 128, 4 linear knots,
+    1 solver iteration, from `aloha_home_qpos` with the policy at
+    `home_ctrl` on every knot. `calls` timed plans (CUDA events), the
+    first counted: median latency and rollout steps/s; launches a plan
+    by the counters (B2 only, one a step); CUDA launches, busy ms a step
+    and the idle share from HANDOVER_PROFILE_SESSIONS torch.profiler
+    sessions of a `profile_horizon`-step plan of the same width. Then
+    one more plan's candidates with the witness's (`witness_noise`)
+    rolled until every one has diverged (`divergence_steps`): each
+    candidate's divergence step (the witness's beside the JAX kernel
+    branch's, WITNESS_JAX_STEPS), and B2 at the plan's one Newton
+    iteration on the plan's first-step states against its twins
+    (`against_twins`, `b2_row`; its launches not counted). Last, one
+    plan of `check_nsample` candidates at 8 solver iterations: every
+    return finite and under MAX_RETURN. Returns (numbers, B2's row)."""
+    import dataclasses
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.physics import fused_solver
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
+    from humanoid_mujoco_torch.planners import (SamplingConfig, init_policy,
+                                                sampling_plan)
+    from humanoid_mujoco_torch.planners.sampling import (plan_nominal,
+                                                         sample_candidates)
+    from humanoid_mujoco_torch.rollout import MAX_RETURN
+    from humanoid_mujoco_torch.tasks.aloha import (aloha_home_qpos,
+                                                   aloha_model,
+                                                   handover_task, home_ctrl)
+    m = aloha_model(device=device)
+    task = handover_task(device=device)
+    cfg = SamplingConfig(nsample=nsample, nknots=HANDOVER_K,
+                         horizon=horizon, order=SplineOrder.LINEAR,
+                         solver_iters=1)
+    s0 = make_state(m, qpos=aloha_home_qpos(m))
+    pol = init_policy(m, HANDOVER_K)
+    pol = dataclasses.replace(pol, values=home_ctrl(m)[None].expand(
+        HANDOVER_K, -1).clone())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def plan(c=cfg):
+        return sampling_plan(m, task, c, pol, s0, generator=gen)
+    counters_zero()
+    (_, info), t = timer.once(plan)
+    n = counters()
+    lat = [t] + [timer.once(plan)[1] for _ in range(calls - 1)]
+    med = float(np.median(lat))
+    out = {"nsample": nsample, "horizon": horizon, "knots": HANDOVER_K,
+           "order": "linear", "solver_iters": cfg.solver_iters,
+           "latency_ms": lat, "median_latency_ms": med,
+           "rollout_steps_per_s": nsample * horizon / (med * 1e-3),
+           "launches_per_plan": n,
+           "best_return": float(info.best_return),
+           "nominal_return": float(info.nominal_return),
+           "improvement": float(info.improvement),
+           "returns_finite": bool(torch.isfinite(info.returns).all()),
+           "diverged_candidates": int((info.returns >= MAX_RETURN).sum())}
+    assert out["returns_finite"] and out["improvement"] >= 0.0, out
+    if device != "cpu":
+        assert n == {"smooth": 0, "solver": horizon, "euler": 0}, n
+        pcfg = dataclasses.replace(cfg, horizon=profile_horizon)
+        prows, runs = profile_rows_complete(
+            lambda: plan(pcfg), profile_horizon, HANDOVER_PROFILE_SESSIONS)
+        busy = sum(x[2] for x in prows) / 1e3
+        k = profile_horizon * HANDOVER_PROFILE_SESSIONS
+        out["profile"] = {
+            "horizon": k, "profiler_sessions": runs,
+            "busy_ms_per_step": busy / k,
+            "cuda_launches_per_step": sum(x[1] for x in prows) / k,
+            "idle_share": 1.0 - busy / k / (med / horizon),
+            "top": [(x[0][:60], x[1], x[2] / 1e3) for x in prows[:3]]}
+    # one plan's candidates and the witness's, rolled until all diverge
+    nominal = plan_nominal(m, cfg, pol, s0, "handover")
+    wcfg = dataclasses.replace(cfg, nsample=WITNESS_N)
+    cands = torch.cat([
+        sample_candidates(m, cfg, nominal.values, gen),
+        sample_candidates(m, wcfg, nominal.values,
+                          noise=witness_noise(m.nu))])
+    first, rolled, (q1, v1, u1) = divergence_steps(m, cfg, nominal, cands,
+                                                   s0)
+    hit = first[:nsample][first[:nsample] >= 0]
+    out["divergence"] = {
+        "steps_rolled": rolled, "candidates_diverged": int(hit.numel()),
+        "per_step_counts": {i: int(c) for i, c in enumerate(
+            torch.bincount(hit, minlength=rolled).tolist()) if c},
+        "witness_steps": first[nsample:].tolist(),
+        "witness_steps_jax_float64": WITNESS_JAX_STEPS}
+    if horizon >= max(WITNESS_JAX_STEPS) + WITNESS_SLACK:
+        assert all(abs(a - b) <= WITNESS_SLACK for a, b in zip(
+            first[nsample:].tolist(), WITNESS_JAX_STEPS)), out["divergence"]
+    # B2 at the plan's iterations on its first-step states
+    n0 = counters()
+    lim_tab = limit_rows_static(m)
+    args = contact_solve_inputs(m, q1[:nsample], v1[:nsample],
+                                u1[:nsample])
+    _, out["b2_first_step"] = against_twins(
+        fused_solver.solve_step_raw, fused_solver.solve_step_raw_reference,
+        args, {"lim_tab": lim_tab, "niter": cfg.solver_iters},
+        ("qacc", "qvel_new", "fslot", "qfrc_constraint"))
+    row = b2_row(m, args, lim_tab, device, timer,
+                 out["b2_first_step"]["max_abs_err"],
+                 niter=cfg.solver_iters)
+    row["batch"] = nsample
+    out["b2_first_step"].update(niter=cfg.solver_iters, **row)
+    fused_solver.LAUNCHES = n0["solver"]
+    ccfg = dataclasses.replace(cfg, nsample=check_nsample, solver_iters=8)
+    (_, cinfo), c_ms = timer.once(lambda: plan(ccfg))
+    out["converged_check"] = {
+        "nsample": check_nsample, "solver_iters": 8, "ms": c_ms,
+        "best_return": float(cinfo.best_return),
+        "nominal_return": float(cinfo.nominal_return),
+        "diverged_candidates": int((cinfo.returns >= MAX_RETURN).sum())}
+    assert out["converged_check"]["diverged_candidates"] == 0 \
+        and float(cinfo.best_return) <= float(cinfo.nominal_return), out
+    return out, row
+
+
+def quadrotor_hovers(device):
+    """tests/test_quadrotor.py:34-44 on the port: the Quadrotor at the
+    hover thrust for 200 steps holds its position and velocity within
+    1e-5."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    from humanoid_mujoco_torch.tasks import home_qpos, task_model
+    from humanoid_mujoco_torch.tasks.quadrotor import hover_ctrl
+    m = task_model("Quadrotor", device=device)
+    s = make_state(m, qpos=home_qpos("Quadrotor", m))
+    u = torch.full((1, 4), hover_ctrl(m), dtype=m.dtype, device=m.device)
+    div = False
+    for _ in range(200):
+        s, info = step(m, s, u)
+        div |= bool(info.diverged.any())
+    pos_err = float((s.qpos[0, :3] - torch.tensor(
+        [0.0, 0.0, 0.3], device=m.device)).abs().max())
+    out = {"steps": 200, "max_pos_err": pos_err,
+           "max_qvel": float(s.qvel.abs().max()), "threshold": 1e-5}
+    assert not div and pos_err < 1e-5 and out["max_qvel"] < 1e-5, out
+    return out
+
+
+def op3_settles(device):
+    """tests/test_tasks_suite.py:385-413 on the port: OP3 settles 300
+    steps from its home keyframe under its servo targets, the height
+    residual under 0.02 and the normal force its weight within 5%."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import forward, step
+    from humanoid_mujoco_torch.tasks import get_task, task_model
+    from humanoid_mujoco_torch.tasks.op3 import op3_home_qpos
+    m = task_model("OP3", device=device)
+    task = get_task("OP3", device=device)
+    s = make_state(m, qpos=op3_home_qpos(m))
+    c = op3_home_qpos(m)[7:][None]
+    zero = torch.zeros((1, m.nu), dtype=m.dtype, device=m.device)
+    _, _, _, info = forward(m, s, zero)
+    h_err = float(task.residual(m, s, info, zero)[0, 0])
+    div = False
+    for _ in range(300):
+        s, info = step(m, s, c)
+        div |= bool(info.diverged.any())
+    weight = 9.81 * float(m.body_mass.sum())
+    fn = float(info.contact_force.sum())
+    out = {"steps": 300, "height_residual": h_err, "normal_force": fn,
+           "weight": weight,
+           "thresholds": {"height_residual": 0.02, "force_rel": 0.05}}
+    assert not div and abs(h_err) < 0.02 \
+        and abs(fn - weight) <= 0.05 * weight, out
+    return out
+
+
+def panda_holds(device):
+    """Panda holds its home pose CONTACT_HOLD_STEPS steps under gravcomp
+    and the home controls: the arm's joints drift under 0.05 rad."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    from humanoid_mujoco_torch.tasks import panda, task_model
+    m = task_model("Panda", device=device)
+    q0 = panda.panda_home_qpos(m)
+    s = make_state(m, qpos=q0)
+    u = panda.home_ctrl(m)[None]
+    div = False
+    for _ in range(CONTACT_HOLD_STEPS):
+        s, info = step(m, s, u)
+        div |= bool(info.diverged.any())
+    drift = float((s.qpos[0, :7] - q0[:7]).abs().max())
+    out = {"steps": CONTACT_HOLD_STEPS, "max_arm_joint_drift": drift,
+           "max_arm_qvel": float(s.qvel[0, :7].abs().max())}
+    assert not div and drift < 0.05, out
+    return out
+
+
+def humanoid_stand_ilqg(device):
+    """An iLQG Agent on Humanoid Stand: CONTACT_ILQG_TICKS ticks of
+    planner_step and step from the stand keyframe, the stand cost beside
+    the zero-control loop's (reported)."""
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import forward, step
+    from humanoid_mujoco_torch.tasks import get_task, home_qpos, task_model
+    from humanoid_mujoco_torch.tasks.base import cost_value
+    name = "Humanoid Stand"
+    m = task_model(name, device=device)
+    task = get_task(name, device=device)
+    q0 = home_qpos(name, m)
+    a = Agent(m, name)
+    a.set_state(qpos=q0)
+    costs = []
+    for _ in range(CONTACT_ILQG_TICKS):
+        best = a.planner_step()
+        a.step()
+        costs.append(sum(a.get_cost_term_values().values()))
+    s = make_state(m, qpos=q0)
+    zero = torch.zeros((1, m.nu), dtype=m.dtype, device=m.device)
+    for _ in range(CONTACT_ILQG_TICKS):
+        s, _ = step(m, s, zero)
+    _, _, _, info = forward(m, s, zero)
+    out = {"ticks": CONTACT_ILQG_TICKS, "planner": a.planner,
+           "best_return": best, "stand_costs": costs,
+           "zero_control_cost": float(cost_value(task, task.residual(
+               m, s, info, zero))[0]),
+           "root_z": float(a.get_state()["qpos"][2])}
+    assert np.isfinite(best) and np.all(np.isfinite(costs)), out
+    return out
+
+
+def run_handover(device="cuda", gpu="cpu", **kw):
+    """The `handover` phase (`handover_plan`). Returns B2's numbers for
+    the kernel table: the plan's launches and B2 at batch 8191."""
+    timer = Timer(device)
+    t0 = time.perf_counter()
+    counters_zero()
+    ho, row = handover_plan(device, timer, **kw)
+    launches = counters()["solver"]
+    log("handover", gpu=gpu, tol=TOL, wall_s=time.perf_counter() - t0,
+        **ho)
+    table = {"launches_handover": launches}
+    table.update({f"{k}_handover_8191": v for k, v in row.items()
+                  if k in ("ms", "wrapper_ms", "plain_ms", "bound_ms",
+                           "bound_by", "flops", "max_abs_err")})
+    return table
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4230,6 +4716,7 @@ def main():
     table[0].update(b1_pl)
     table[1].update(b2_pl)
     table[2].update(b3_pl)
+    table[1].update(run_handover("cuda", gpu=smi))
     est_rows = run_estimation("cuda", gpu=smi)
     for row, k in zip(table, ("smooth", "solver", "euler")):
         row.update(est_rows[k])

@@ -1,8 +1,10 @@
 """Forward kinematics + smooth (unconstrained) dynamics, batched.
 
-Counterpart of humanoid_mujoco_tpu/physics/engine.py for the kernel
-family (free/hinge/slide joints, motor/position actuators) and the
-inertia-box fluid drag of the Swimmer's medium. Every
+Counterpart of humanoid_mujoco_tpu/physics/engine.py: free, ball,
+hinge and slide joints; motor, position and site (thrust or Cartesian
+wrench) actuators; joint springs and damping, per-body gravity
+compensation and the inertia-box fluid drag of the Swimmer's medium.
+Every
 function takes batch-leading tensors; loops run over the static
 structure, and the per-body recursions are masked contractions over
 the static (nbody, nv) chain mask, as in the JAX package.
@@ -206,34 +208,87 @@ def rnea_bias(m: Model, kin: Kin, vel: Vel, qvel: torch.Tensor
 
 def actuator_force(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
                    ctrl: torch.Tensor) -> torch.Tensor:
-    """Per-actuator joint torques after gear (B, nu)."""
+    """Per-actuator forces after gear (B, nu): joint torques of motor
+    and position actuators, gear · ctrl of site actuators."""
     s = m.struct
-    c = torch.clamp(ctrl, m.act_ctrlrange[:, 0], m.act_ctrlrange[:, 1])
+    c = pm.clip(ctrl, m.act_ctrlrange[:, 0], m.act_ctrlrange[:, 1])
     forces = []
     for a in range(s.nu):
         j = s.act_jnt[a]
-        if s.act_type[a] == ActuatorType.MOTOR:
+        if s.act_type[a] in (ActuatorType.MOTOR, ActuatorType.SITE_THRUST):
             force = c[:, a]
         else:  # POSITION
             force = (m.act_kp[..., a] * (c[:, a] - qpos[:, s.jnt_qadr[j]])
                      - m.act_kv[a] * qvel[:, s.jnt_vadr[j]])
-        forces.append(m.act_gear[a] * torch.clamp(
+        forces.append(m.act_gear[a] * pm.clip(
             force, m.act_forcerange[..., a, 0], m.act_forcerange[..., a, 1]))
     if not forces:
         return qpos.new_zeros((qpos.shape[0], 0))
     return torch.stack(forces, dim=-1)
 
 
+def _joint_acts(m: Model):
+    return [a for a in range(m.nu)
+            if m.struct.act_type[a] != ActuatorType.SITE_THRUST]
+
+
 def actuation(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
               ctrl: torch.Tensor) -> torch.Tensor:
-    """Actuator forces -> qfrc_actuator (B, nv)."""
+    """Joint actuators' forces -> qfrc_actuator (B, nv); site actuators
+    act through `thrust_qfrc`."""
     s = m.struct
     qfrc = qpos.new_zeros((qpos.shape[0], s.nv))
-    if s.nu == 0:
+    acts = _joint_acts(m)
+    if not acts:
         return qfrc
-    idx = torch.as_tensor([s.jnt_vadr[j] for j in s.act_jnt],
-                          device=qpos.device)
-    return qfrc.index_add(1, idx, actuator_force(m, qpos, qvel, ctrl))
+    idx = m.struct_static(("act_vadr", qpos.device), lambda: torch.as_tensor(
+        [s.jnt_vadr[s.act_jnt[a]] for a in acts], device=qpos.device))
+    f = actuator_force(m, qpos, qvel, ctrl)
+    if len(acts) < s.nu:
+        f = f[:, m.struct_static(("joint_acts", qpos.device),
+                                 lambda: torch.as_tensor(
+                                     acts, device=qpos.device))]
+    return qfrc.index_add(1, idx, f)
+
+
+def has_thrust(m: Model) -> bool:
+    return any(t == ActuatorType.SITE_THRUST for t in m.struct.act_type)
+
+
+def thrust_qfrc(m: Model, kin: Kin, ctrl: torch.Tensor) -> torch.Tensor:
+    """Site actuators -> qfrc (B, nv): each applies the wrench
+    ctrl · gear6 at its site point, in the site body's frame or, for a
+    world-frame actuator, in the world frame; moved to its body's COM
+    and mapped as an external wrench."""
+    s = m.struct
+    B = ctrl.shape[0]
+    c = pm.clip(ctrl, m.act_ctrlrange[:, 0], m.act_ctrlrange[:, 1])
+    cols = [kin.xpos.new_zeros((B, 6)) for _ in range(s.nbody)]
+    for a in range(s.nu):
+        if s.act_type[a] != ActuatorType.SITE_THRUST:
+            continue
+        site = s.act_site[a]
+        b = s.site_body[site]
+        u = pm.clip(c[:, a], m.act_forcerange[..., a, 0],
+                    m.act_forcerange[..., a, 1])[:, None]
+        f = m.act_gear6[a, :3] * u
+        t = m.act_gear6[a, 3:] * u
+        if not (s.act_site_world and s.act_site_world[a]):
+            R = kin.xmat[:, b]
+            f = torch.einsum("nij,nj->ni", R, f)
+            t = torch.einsum("nij,nj->ni", R, t)
+        t = t + pm.cross(kin.site_xpos[:, site] - kin.xipos[:, b], f)
+        cols[b] = cols[b] + torch.cat([f, t], dim=-1)
+    return xfrc_to_qfrc(m, kin, torch.stack(cols, dim=1))
+
+
+def gravcomp_qfrc(m: Model, kin: Kin) -> torch.Tensor:
+    """Per-body gravity compensation (MJCF body gravcomp): the force
+    gravcomp · mass · (-gravity) at each body's COM, (B, nv)."""
+    frc = (m.body_gravcomp * m.body_mass)[..., None] * (-m.gravity)
+    frc = frc.expand(kin.xpos.shape[0], -1, -1)
+    return xfrc_to_qfrc(m, kin, torch.cat([frc, torch.zeros_like(frc)],
+                                          dim=-1))
 
 
 def passive_force(m: Model, qpos: torch.Tensor, qvel: torch.Tensor
@@ -326,7 +381,8 @@ def prepare_smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
                    ctrl: torch.Tensor, xfrc: Optional[torch.Tensor] = None):
     """The plain smooth stage (counterpart of the JAX step's
     `_prepare_smooth` without collision): kinematics, M, the bias,
-    actuation, passive and fluid forces and optional per-body wrenches.
+    actuation (joint and site actuators), passive, gravity-compensation
+    and fluid forces and optional per-body wrenches.
     Returns (kin, vel, M, qfrc_smooth), batch-leading."""
     kin = fwd_position(m, qpos)
     vel = fwd_velocity(m, kin, qvel)
@@ -336,7 +392,11 @@ def prepare_smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
     qfrc_passive = passive_force(m, qpos, qvel)
     if m.struct.fluid_density or m.struct.fluid_viscosity:
         qfrc_passive = qfrc_passive + fluid_force(m, kin, vel)
+    if m.struct.has_gravcomp:
+        qfrc_passive = qfrc_passive + gravcomp_qfrc(m, kin)
     qfrc_smooth = tau + qfrc_passive - bias
+    if has_thrust(m):
+        qfrc_smooth = qfrc_smooth + thrust_qfrc(m, kin, ctrl)
     if xfrc is not None:
         qfrc_smooth = qfrc_smooth + xfrc_to_qfrc(m, kin, xfrc)
     return kin, vel, M, qfrc_smooth

@@ -388,7 +388,8 @@ def _check_kernel_inputs(m: Model, *tensors):
         raise NotImplementedError(
             "model outside the kernel family of the smooth kernel "
             "(capsules, boxes, tendons, ball joints, fluid, gravcomp and "
-            "site actuators come with slice 4 of the port)")
+            "site actuators): physics.step routes it through the plain "
+            "smooth stage")
     if m.struct.nhrow < 2 or m.struct.nhcol < 2:
         raise ValueError("the smooth kernel needs a heightfield of at "
                          "least 2 x 2 cells")

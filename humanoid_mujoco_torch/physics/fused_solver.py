@@ -59,7 +59,8 @@ def _lim_csr(lim_tab, device):
     with each entry's row; then kernel B2's Hessian pairs of one row's
     entries with dof_k <= dof_i: (lower-triangle index of (dof_i,
     dof_k), row, c_i c_k in float32)."""
-    tab = np.asarray(lim_tab, dtype=np.float64).reshape(len(lim_tab), -1)
+    tab = np.asarray(lim_tab, dtype=np.float64).reshape(len(lim_tab), -1) \
+        if lim_tab else np.zeros((0, 1))
     ptr, dof, row_of, coef = [0], [], [], []
     ptri, prow, pcoef = [], [], []
     for r, row in enumerate(tab):

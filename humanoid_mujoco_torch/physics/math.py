@@ -78,6 +78,15 @@ def safe_norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False,
     return torch.sqrt(torch.sum(v * v, dim=dim, keepdim=keepdim) + eps)
 
 
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """min(max(x, lo), hi), as jnp.clip: at x on a bound the tangent is
+    split evenly, where torch.clamp passes it whole (the derivative of a
+    saturated control, for one)."""
+    lo = torch.as_tensor(lo, device=x.device)
+    hi = torch.as_tensor(hi, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def quat_exp(v: torch.Tensor) -> torch.Tensor:
     """Rotation vector (axis * angle) -> quaternion."""
     angle = safe_norm(v, keepdim=True)

@@ -13,7 +13,7 @@ the final arrays into tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -346,7 +346,15 @@ class ModelBuilder:
         self._joints: List[dict] = []
         self._acts: List[dict] = []
         self._sphs: List[dict] = []
+        self._caps: List[dict] = []
+        self._boxes: List[dict] = []
         self._pairs: List[Tuple[int, int]] = []
+        self._pairs_sc: List[Tuple[int, int]] = []
+        self._pairs_cc: List[Tuple[int, int]] = []
+        self._pairs_sb: List[Tuple[int, int]] = []
+        self._pairs_cb: List[Tuple[int, int]] = []
+        self._pairs_bb: List[Tuple[int, int]] = []
+        self._tendons: List[dict] = []
         self._sites: List[dict] = []
         self.floor_z = 0.0
         self.floor_friction = 1.0
@@ -393,6 +401,19 @@ class ModelBuilder:
                                forcerange=forcerange))
         return len(self._acts) - 1
 
+    def add_thrust(self, site: int, gear=(0.0, 0.0, 1.0, 0.0, 0.0, 0.0),
+                   ctrlrange=(0.0, 1.0), forcerange=(-1e9, 1e9),
+                   world_frame: bool = False) -> int:
+        """Site actuator: the wrench ctrl * gear6 at the site point, in
+        the site body's frame or, with `world_frame`, in the world frame
+        (the quadrotor's rotors; the Panda's Cartesian actuators)."""
+        self._acts.append(dict(joint=-1, atype=ActuatorType.SITE_THRUST,
+                               gear=1.0, kp=0.0, kv=0.0,
+                               ctrlrange=ctrlrange, forcerange=forcerange,
+                               site=site, gear6=tuple(gear),
+                               world_frame=bool(world_frame)))
+        return len(self._acts) - 1
+
     def add_sphere(self, body: int, pos=(0, 0, 0), radius: float = 0.02,
                    friction: float = 1.0, friction_tor: float = 0.005,
                    friction_roll: float = 0.0001,
@@ -403,8 +424,63 @@ class ModelBuilder:
                                floor=bool(floor)))
         return len(self._sphs) - 1
 
+    def add_capsule(self, body: int, p0=(0, 0, 0), p1=(0, 0, 1),
+                    radius: float = 0.02, friction: float = 1.0,
+                    friction_tor: float = 0.005,
+                    friction_roll: float = 0.0001,
+                    floor: bool = True) -> int:
+        """Capsule from its segment's endpoints in the body frame (the
+        MJCF fromto convention)."""
+        p0 = np.asarray(p0, dtype=np.float64)
+        p1 = np.asarray(p1, dtype=np.float64)
+        d = p1 - p0
+        halflen = 0.5 * float(np.linalg.norm(d))
+        self._caps.append(dict(body=body, pos=tuple(0.5 * (p0 + p1)),
+                               axis=tuple(d / max(2 * halflen, 1e-12)),
+                               halflen=halflen, radius=radius,
+                               friction=friction, friction_tor=friction_tor,
+                               friction_roll=friction_roll,
+                               floor=bool(floor)))
+        return len(self._caps) - 1
+
+    def add_box(self, body: int, pos=(0, 0, 0), quat=(1, 0, 0, 0),
+                size=(0.1, 0.1, 0.1), friction: float = 1.0,
+                friction_tor: float = 0.005, friction_roll: float = 0.0001,
+                floor: bool = True) -> int:
+        """Box of half-extents `size`, posed in the body frame."""
+        self._boxes.append(dict(body=body, pos=pos, quat=quat, size=size,
+                                friction=friction,
+                                friction_tor=friction_tor,
+                                friction_roll=friction_roll,
+                                floor=bool(floor)))
+        return len(self._boxes) - 1
+
     def add_pair(self, sph_a: int, sph_b: int):
         self._pairs.append((sph_a, sph_b))
+
+    def add_pair_sc(self, sph: int, cap: int):
+        self._pairs_sc.append((sph, cap))
+
+    def add_pair_cc(self, cap_a: int, cap_b: int):
+        self._pairs_cc.append((cap_a, cap_b))
+
+    def add_pair_sb(self, sph: int, box: int):
+        self._pairs_sb.append((sph, box))
+
+    def add_pair_cb(self, cap: int, box: int):
+        self._pairs_cb.append((cap, box))
+
+    def add_pair_bb(self, box_a: int, box_b: int):
+        self._pairs_bb.append((box_a, box_b))
+
+    def add_tendon_limit(self, joints: Sequence[int],
+                         coefs: Sequence[float], trange: Tuple[float, float]):
+        """Fixed-tendon length limit lo <= Σ coef_i qpos[jnt_i] <= hi
+        (MJCF <fixed limited="true">: the humanoid's hamstrings)."""
+        self._tendons.append(dict(joints=tuple(int(j) for j in joints),
+                                  coefs=tuple(float(c) for c in coefs),
+                                  range=(float(trange[0]),
+                                         float(trange[1]))))
 
     def add_site(self, name: str, body: int, pos=(0, 0, 0)) -> int:
         self._sites.append(dict(name=name, body=body, pos=pos))
@@ -443,12 +519,30 @@ class ModelBuilder:
         for i in range(nv):
             dof_mask[i] = body_dof[dof_body[i]]
 
-        nsph = len(self._sphs)
+        nsph, ncap, nbox = len(self._sphs), len(self._caps), len(self._boxes)
         nu = len(self._acts)
         sph_body_l = [s["body"] for s in self._sphs]
-        # canonical slot order: sphere-vs-floor, then sphere pairs
-        slot_a = [-1] * nsph + [sph_body_l[i] for i, _ in self._pairs]
-        slot_b = list(sph_body_l) + [sph_body_l[j] for _, j in self._pairs]
+        cap_body_l = [c["body"] for c in self._caps]
+        box_body_l = [b["body"] for b in self._boxes]
+        # canonical slot order (collision.py's header): the floor groups
+        # (1 slot a sphere, 2 a capsule, 8 a box), then the pair groups
+        slot_a: List[int] = []
+        slot_b: List[int] = []
+        for bodies, per in ((sph_body_l, 1), (cap_body_l, 2),
+                            (box_body_l, 8)):
+            for b in bodies:
+                slot_a.extend([-1] * per)
+                slot_b.extend([b] * per)
+        for pairs, la, lb, per in (
+                (self._pairs, sph_body_l, sph_body_l, 1),
+                (self._pairs_sc, sph_body_l, cap_body_l, 1),
+                (self._pairs_cc, cap_body_l, cap_body_l, 1),
+                (self._pairs_sb, sph_body_l, box_body_l, 1),
+                (self._pairs_cb, cap_body_l, box_body_l, 1),
+                (self._pairs_bb, box_body_l, box_body_l, 16)):
+            for i, j in pairs:
+                slot_a.extend([la[i]] * per)
+                slot_b.extend([lb[j]] * per)
 
         struct = Structure(
             nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, nsph=nsph,
@@ -468,8 +562,9 @@ class ModelBuilder:
             pair_b=tuple(p[1] for p in self._pairs),
             act_type=tuple(a["atype"] for a in self._acts),
             act_jnt=tuple(a["joint"] for a in self._acts),
-            act_site=tuple(-1 for _ in self._acts),
-            act_site_world=tuple(False for _ in self._acts),
+            act_site=tuple(a.get("site", -1) for a in self._acts),
+            act_site_world=tuple(bool(a.get("world_frame", False))
+                                 for a in self._acts),
             has_gravcomp=any(b["gravcomp"] != 0.0 for b in self._bodies),
             body_names=tuple(b["name"] for b in self._bodies),
             jnt_names=tuple(j["name"] for j in self._joints),
@@ -479,7 +574,16 @@ class ModelBuilder:
             max_contacts=self.max_contacts,
             fluid_density=float(self.fluid_density),
             fluid_viscosity=float(self.fluid_viscosity),
+            ncap=ncap, nbox=nbox,
+            cap_body=tuple(cap_body_l), box_body=tuple(box_body_l),
+            pair_sc=tuple(self._pairs_sc), pair_cc=tuple(self._pairs_cc),
+            pair_sb=tuple(self._pairs_sb), pair_cb=tuple(self._pairs_cb),
+            pair_bb=tuple(self._pairs_bb),
             sph_floor=tuple(s["floor"] for s in self._sphs),
+            cap_floor=tuple(c["floor"] for c in self._caps),
+            box_floor=tuple(b["floor"] for b in self._boxes),
+            tendon_jnt=tuple(t["joints"] for t in self._tendons),
+            tendon_coef=tuple(t["coefs"] for t in self._tendons),
             slot_body_a=tuple(slot_a), slot_body_b=tuple(slot_b),
         )
 
@@ -513,6 +617,7 @@ class ModelBuilder:
 
         bodies, joints, acts = self._bodies, self._joints, self._acts
         sphs, sites = self._sphs, self._sites
+        caps, boxes, tendons = self._caps, self._boxes, self._tendons
         return Model(
             struct=struct,
             body_pos=arr([b["pos"] for b in bodies], (nbody, 3)),
@@ -532,7 +637,8 @@ class ModelBuilder:
             dof_damping=arr(dof_damping, (nv,)),
             dof_armature=arr(dof_armature, (nv,)),
             act_gear=arr([a["gear"] for a in acts], (nu,)),
-            act_gear6=arr([(0.0,) * 6 for _ in acts], (nu, 6)),
+            act_gear6=arr([a.get("gear6", (0.0,) * 6) for a in acts],
+                          (nu, 6)),
             act_kp=arr([a["kp"] for a in acts], (nu,)),
             act_kv=arr([a["kv"] for a in acts], (nu,)),
             act_ctrlrange=arr([a["ctrlrange"] for a in acts], (nu, 2)),
@@ -557,14 +663,25 @@ class ModelBuilder:
             solimp=arr(self.solimp, (3,)),
             limit_solref=arr(self.limit_solref, (2,)),
             limit_solimp=arr(self.limit_solimp, (3,)),
-            cap_pos=arr([], (0, 3)), cap_axis=arr([], (0, 3)),
-            cap_halflen=arr([], (0,)), cap_radius=arr([], (0,)),
-            cap_friction=arr([], (0,)), cap_friction_tor=arr([], (0,)),
-            cap_friction_roll=arr([], (0,)),
-            box_pos=arr([], (0, 3)), box_quat=arr([], (0, 4)),
-            box_size=arr([], (0, 3)), box_friction=arr([], (0,)),
-            box_friction_tor=arr([], (0,)), box_friction_roll=arr([], (0,)),
-            tendon_range=arr([], (0, 2)),
+            cap_pos=arr([c["pos"] for c in caps], (ncap, 3)),
+            cap_axis=arr([c["axis"] for c in caps], (ncap, 3)),
+            cap_halflen=arr([c["halflen"] for c in caps], (ncap,)),
+            cap_radius=arr([c["radius"] for c in caps], (ncap,)),
+            cap_friction=arr([c["friction"] for c in caps], (ncap,)),
+            cap_friction_tor=arr([c["friction_tor"] for c in caps],
+                                 (ncap,)),
+            cap_friction_roll=arr([c["friction_roll"] for c in caps],
+                                  (ncap,)),
+            box_pos=arr([b["pos"] for b in boxes], (nbox, 3)),
+            box_quat=arr([_normq(b["quat"]) for b in boxes], (nbox, 4)),
+            box_size=arr([b["size"] for b in boxes], (nbox, 3)),
+            box_friction=arr([b["friction"] for b in boxes], (nbox,)),
+            box_friction_tor=arr([b["friction_tor"] for b in boxes],
+                                 (nbox,)),
+            box_friction_roll=arr([b["friction_roll"] for b in boxes],
+                                  (nbox,)),
+            tendon_range=arr([t["range"] for t in tendons],
+                             (len(tendons), 2)),
             sol_iter=torch.as_tensor(self.sol_iter, dtype=torch.int32,
                                      device=dev),
         )

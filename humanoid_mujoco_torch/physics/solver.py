@@ -74,15 +74,20 @@ def _limited_joints(m: Model):
 
 
 def limit_rows_static(m: Model):
-    """Static limit-row Jacobian table (nlim, nv) as a nested tuple:
-    ±e_vadr per limited scalar joint, in make_rows order."""
+    """Static limit-row Jacobian table (nlim, nv) as a nested tuple, in
+    the JAX make_rows order: ±e_vadr per limited scalar joint, then ± the
+    coefficient combination of each fixed tendon."""
     s = m.struct
-    if s.ntendon:
-        raise NotImplementedError("tendon limits come with slice 4")
     rows = []
     for j in _limited_joints(m):
         r = np.zeros(s.nv)
         r[s.jnt_vadr[j]] = 1.0
+        rows.append(r)
+        rows.append(-r)
+    for jnts, coefs in zip(s.tendon_jnt, s.tendon_coef):
+        r = np.zeros(s.nv)
+        for j, c in zip(jnts, coefs):
+            r[s.jnt_vadr[j]] += c
         rows.append(r)
         rows.append(-r)
     tab = np.stack(rows) if rows else np.zeros((0, s.nv))
@@ -90,7 +95,8 @@ def limit_rows_static(m: Model):
 
 
 def limit_rows_data(m: Model, qpos: torch.Tensor):
-    """(pos, k, b, d) of the limit rows, each (B, nlim)."""
+    """(pos, k, b, d) of the limit rows, each (B, nlim): the joint
+    limits, then the fixed-tendon lengths against their ranges."""
     s = m.struct
     pos = []
     for j in _limited_joints(m):
@@ -100,6 +106,11 @@ def limit_rows_data(m: Model, qpos: torch.Tensor):
         mg = m.jnt_margin[..., j]
         pos.append(qpos[:, qadr] - lo - mg)
         pos.append(hi - mg - qpos[:, qadr])
+    for t, (jnts, coefs) in enumerate(zip(s.tendon_jnt, s.tendon_coef)):
+        length = sum(c * qpos[:, s.jnt_qadr[j]] for j, c in zip(jnts, coefs))
+        lo, hi = m.tendon_range[..., t, 0], m.tendon_range[..., t, 1]
+        pos.append(length - lo)
+        pos.append(hi - length)
     if not pos:
         z = qpos.new_zeros((qpos.shape[0], 0))
         return z, z, z, z
@@ -111,8 +122,8 @@ def limit_rows_data(m: Model, qpos: torch.Tensor):
 
 def make_rows(m: Model, qpos: torch.Tensor) -> Rows:
     """Raw constraint rows of a model without contact slots: the joint
-    limits, two rows per limited scalar joint (the limit block of the
-    JAX make_rows). J is the static table broadcast to (B, nlim, nv);
+    and tendon limits, two rows each (the limit block of the JAX
+    make_rows). J is the static table broadcast to (B, nlim, nv);
     pos, k, b, d are (B, nlim), with k and b from the model's dt."""
     if m.ncon:
         raise NotImplementedError(

@@ -9,11 +9,15 @@ with its four routes (`route`):
   implicit-damping Euler (kernel B2, fused_solver.solve_step_raw),
   selection-free over all slots as on the JAX kernel path;
 - "contact", models with contact slots outside B1's family (Quadruped
-  Hill, whose 64 x 64 heightfield is over B1's 1024-cell gate): the
-  plain smooth stage `engine.prepare_smooth`, `collide`, the raw contact
-  and limit data (solver.contact_raw, limit_rows_data), then kernel B2,
-  as JAX step.py:288-316 does; selection-free when nv·(nlim + 10 ncon)
-  <= 16384, as there (larger models need B2's per-env dmask and raise);
+  Hill, whose 64 x 64 heightfield is over B1's 1024-cell gate; every
+  model with capsules, boxes, fixed tendons, gravcomp or site actuators:
+  the upstream humanoid, OP3, Panda, PickAndPlace, FreeFingers, the
+  Quadrotor, the bimanual Handover): the plain smooth stage
+  `engine.prepare_smooth`, `collide`, the raw contact and limit data
+  (solver.contact_raw, limit_rows_data), then kernel B2, as JAX
+  step.py:288-316 does; selection-free when nv·(nlim + 10 ncon) <= 16384,
+  as there, also where the model keeps a top-k cap (`max_contacts`) in
+  `forward` (larger models need B2's per-env dmask and raise);
 - "rows", models with no contact slots and at least one constraint row
   (the Swimmer, Cartpole): the plain smooth stage, the joint-limit rows
   (solver.make_rows), then the explicit-row solve + Euler (kernel B3,
@@ -26,8 +30,8 @@ with its four routes (`route`):
 
 Then position integration on the configuration manifold. CPU tensors
 run the kernels' plain PyTorch twins; CUDA tensors run the kernels.
-Models with capsules, boxes, tendons, gravcomp or site actuators come
-with a later slice of the port (ROADMAP item 9e) and raise.
+`step_rk4` is the JAX package's explicit RK4 on `forward`, plain PyTorch
+on every device as there.
 
 `forward` is the JAX package's forward dynamics (qacc, qfrc_total, M,
 StepInfo) without the Euler update, plain PyTorch on every device as in
@@ -53,7 +57,7 @@ from ..ops import linalg
 from . import engine, fused_smooth, fused_solver
 from . import math as pm
 from .collision import collide, select_contacts
-from .model import ActuatorType, JointType, Model, State
+from .model import JointType, Model, State
 from .solver import (contact_dmask, contact_raw, finish_efc,
                      limit_rows_data, limit_rows_static, make_contact_rows,
                      make_rows, newton_solve)
@@ -138,10 +142,6 @@ def forward(m: Model, state: State, ctrl: torch.Tensor,
         raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
                          f"match the model ({m.dtype}, {m.device})")
     s = m.struct
-    if s.has_gravcomp or any(t == ActuatorType.SITE_THRUST
-                             for t in s.act_type):
-        raise NotImplementedError(
-            "gravcomp and site actuators come with slice 4 of the port")
     kin, vel, M, qfrc_smooth = engine.prepare_smooth(m, qpos, qvel, ctrl,
                                                      xfrc)
     contacts, sel = None, None
@@ -188,20 +188,20 @@ def _route(m: Model) -> str:
     s = m.struct
     if fused_smooth.supported(m):
         return "smooth"
-    if (s.ncap or s.nbox or s.ntendon or s.has_gravcomp
-            or any(t == ActuatorType.SITE_THRUST for t in s.act_type)):
-        raise NotImplementedError(
-            "this model has capsules, boxes, tendons, gravcomp or site "
-            "actuators; its step comes with slice 4 of the port (ROADMAP "
-            "item 9e)")
     nlim = len(m.struct_static("lim_tab", lambda: limit_rows_static(m)))
     if m.ncon:
+        if s.nv > fused_solver.NV_MAX:
+            raise NotImplementedError(
+                f"this contact model has nv {s.nv}; kernel B2 takes at "
+                f"most {fused_solver.NV_MAX} dofs (the nv > 32 and per-env "
+                "dmask slice of the port, ROADMAP item 9e)")
         if (0 < s.max_contacts < m.ncon
                 and s.nv * (nlim + 10 * m.ncon) > _SELECTION_FREE_MAX):
             raise NotImplementedError(
                 "this contact model keeps its top-k contact selection in "
-                "the JAX step, which needs kernel B2's per-env dmask "
-                "(ROADMAP queue 2)")
+                "the JAX step, which needs kernel B2's per-env dmask (the "
+                "per-env dmask slice of the port, ROADMAP item 9e and "
+                "queue 2)")
         return "contact"
     return "rows" if nlim else "free"
 
@@ -291,3 +291,31 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
                            qvel_new)
     return (State(qpos=qpos_new, qvel=qvel_new, time=state.time + h),
             dataclasses.replace(info, diverged=diverged))
+
+
+def step_rk4(m: Model, state: State, ctrl: torch.Tensor,
+             xfrc: Optional[torch.Tensor] = None, solver_iters: int = 8
+             ) -> Tuple[State, StepInfo]:
+    """Classic RK4 (mj_RungeKutta analog) on `forward`, explicit, as the
+    JAX step_rk4: plain PyTorch on every device. Returns the new state
+    and the StepInfo of the first stage."""
+    h = m.dt
+
+    def deriv(st):
+        qacc, _, _, info = forward(m, st, ctrl, xfrc, solver_iters)
+        return st.qvel, qacc, info
+
+    v1, a1, info = deriv(state)
+    s2 = State(integrate_pos(m, state.qpos, v1, 0.5 * h),
+               state.qvel + 0.5 * h * a1, state.time)
+    v2, a2, _ = deriv(s2)
+    s3 = State(integrate_pos(m, state.qpos, v2, 0.5 * h),
+               state.qvel + 0.5 * h * a2, state.time)
+    v3, a3, _ = deriv(s3)
+    s4 = State(integrate_pos(m, state.qpos, v3, h),
+               state.qvel + h * a3, state.time)
+    v4, a4, _ = deriv(s4)
+    vavg = (v1 + 2 * v2 + 2 * v3 + v4) / 6.0
+    aavg = (a1 + 2 * a2 + 2 * a3 + a4) / 6.0
+    return (State(integrate_pos(m, state.qpos, vavg, h),
+                  state.qvel + h * aavg, state.time + h), info)

@@ -118,6 +118,14 @@ class Task:
         return self.transition_fn(self, m, state, info)
 
 
+def constant(m: Model, key: str, values, like: torch.Tensor) -> torch.Tensor:
+    """`values` as a tensor of `like`'s dtype and device, built once per
+    model structure: a residual's constants, which a host-to-device copy
+    a step would otherwise hold the host up for."""
+    return m.struct_static((key, like.dtype, like.device), lambda: torch.tensor(
+        values, dtype=like.dtype, device=like.device))
+
+
 def make_task(name: str, terms, residual_fn, weights, norm_params=None,
               params=(), param_names=(), risk=0.0, transition_fn=None,
               mode_names=("default",), mocap=None, dtype=torch.float32,

@@ -1,13 +1,18 @@
 """Task registry (the reference's tasks.cc GetTasks).
 
 Counterpart of humanoid_mujoco_tpu/tasks/registry.py, holding the tasks
-ported so far, under the JAX package's names: "Acrobot", "Cartpole",
-"Humanoid Cap Stand", "Humanoid Cap Walk", "Particle", "ParticleFixed",
-"Quadruped Flat", "Quadruped Hill", "Swimmer" and "Walker" (the
-sphere-and-joint tier; the tasks with capsules, boxes, tendons, ball
-joints, gravcomp or site thrust come later). Each name selects a task
-factory, the factory of the model it plans on and, optionally, its
-home keyframe. Factories take the `dtype` and `device` keywords.
+ported so far, under the JAX package's names: the sphere-and-joint tier
+("Acrobot", "Cartpole", "Humanoid Cap Stand", "Humanoid Cap Walk",
+"Particle", "ParticleFixed", "Quadruped Flat", "Quadruped Hill",
+"Swimmer", "Walker") and the contact-rich tier the step runs selection-
+free ("Bimanual Handover", "FreeFingers", "Humanoid Stand", "Humanoid
+Track", "Humanoid Walk", "OP3", "Panda", "PickAndPlace", "Quadrotor").
+The tasks that need kernel B2's per-env dmask (Allegro, Shadow,
+Bimanual Insert and Reorient, Humanoid Interact) and Rubik (nv 36) come
+later; tasks/aloha.py already holds the Insert and Reorient models,
+whose step raises. Each name selects a task factory, the factory of the
+model it plans on and, optionally, its home keyframe. Factories take
+the `dtype` and `device` keywords.
 """
 
 from __future__ import annotations
@@ -60,10 +65,22 @@ def get_task(name: str, **kwargs) -> Task:
 
 
 def _register_builtin():
+    from ..physics import humanoid_upstream
     from ..physics.humanoid import build_humanoid, stand_qpos
     from .acrobot import acrobot_home_qpos, acrobot_model, acrobot_task
+    from .aloha import aloha_home_qpos, aloha_model, handover_task
     from .cartpole import cartpole_home_qpos, cartpole_model, cartpole_task
+    from .fingers import fingers_home_qpos, fingers_model, fingers_task
+    from .humanoid21 import h21_stand_task, h21_walk_task, humanoid21_model
+    from .humanoid_track import start_state as track_start
+    from .humanoid_track import track_model, track_task
+    from .op3 import op3_home_qpos, op3_model, op3_task
+    from .panda import panda_home_qpos, panda_model, panda_task
     from .particle import particle_fixed_task, particle_model, particle_task
+    from .pickplace import (pickplace_home_qpos, pickplace_model,
+                            pickplace_task)
+    from .quadrotor import (quadrotor_home_qpos, quadrotor_model,
+                            quadrotor_task)
     from .quadruped import (quadruped_home_qpos, quadruped_model,
                             quadruped_task)
     from .quadruped_hill import quadruped_hill_model, quadruped_hill_task
@@ -72,12 +89,28 @@ def _register_builtin():
     from .walk import walk_task
     from .walker2d import walker_model, walker_stand_qpos, walker_task
     register("Acrobot", acrobot_task, acrobot_model, acrobot_home_qpos)
+    register("Bimanual Handover", handover_task, aloha_model,
+             aloha_home_qpos)
     register("Cartpole", cartpole_task, cartpole_model,
              cartpole_home_qpos)
+    register("FreeFingers", fingers_task, fingers_model,
+             fingers_home_qpos)
     register("Humanoid Cap Stand", stand_task, build_humanoid, stand_qpos)
     register("Humanoid Cap Walk", walk_task, build_humanoid, stand_qpos)
+    register("Humanoid Stand", h21_stand_task, humanoid21_model,
+             humanoid_upstream.stand_qpos)
+    register("Humanoid Walk", h21_walk_task, humanoid21_model,
+             humanoid_upstream.stand_qpos)
+    register("Humanoid Track", track_task, track_model,
+             lambda m: track_start(m, 0).qpos[0])
+    register("OP3", op3_task, op3_model, op3_home_qpos)
+    register("Panda", panda_task, panda_model, panda_home_qpos)
     register("Particle", particle_task, particle_model)
     register("ParticleFixed", particle_fixed_task, particle_model)
+    register("PickAndPlace", pickplace_task, pickplace_model,
+             pickplace_home_qpos)
+    register("Quadrotor", quadrotor_task, quadrotor_model,
+             quadrotor_home_qpos)
     register("Quadruped Flat", quadruped_task, quadruped_model,
              quadruped_home_qpos)
     register("Quadruped Hill", quadruped_hill_task, quadruped_hill_model,

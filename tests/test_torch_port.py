@@ -12,7 +12,10 @@ estimation slice (sensors, EKF, UKF, the batch estimator, the direct
 optimizer and its service, the serving filter), the rest of the planner
 library (robust, sample-gradient, gradient, iLQS, parallel Riccati,
 wrench-perturbed rollouts) and the RL tools (tune, plot, videos with
-the renderer and the viewer), each against the JAX package on the same
+the renderer and the viewer), the contact-rich model family (capsule
+and box narrowphase, fixed tendons, gravcomp, site actuators, RK4, the
+upstream humanoid, OP3, Panda, PickAndPlace, FreeFingers, the Quadrotor
+and the bimanual Handover), each against the JAX package on the same
 numpy-seeded inputs, and the port's import isolation. This test runs them all. The kernels themselves are checked
 on the card by chip_smoke.py.
 
@@ -35,12 +38,15 @@ path, the plan), the task slice's four (the quadruped's step, the
 hill's step, the quadruped's plan, the rest) and the estimation slice's
 five (the filters with the serving filter, the EKF's variants, the
 batch estimator, the direct residuals with ParticleFixed's optimize,
-the direct service) and the planner slice's two (the humanoid's wrench
+the direct service), the planner slice's two (the humanoid's wrench
 rollout, robust and gradient plans; the pendulum planners, Riccati,
-the renderer and the viewer) are built in twenty processes: each is a
+the renderer and the viewer) and the contact family's four (the four
+plain-step models and the Handover's plan; the upstream humanoid; OP3
+and the humanoid's derivatives; the Handover with its divergence
+witness and derivatives) are built in twenty-four processes: each is a
 jit trace of a step, Python that holds the GIL, so threads would run
 them one after another. The RL env's process also runs the JAX
-`record_episode` the videos check reads. A twenty-first runs the
+`record_episode` the videos check reads. A twenty-fifth runs the
 estimation slice's checks that need no JAX reference (the JAX tests'
 scenarios on the port, about a minute), and a freed worker its checks
 against the references, while this process runs the iLQG, task and
@@ -53,6 +59,7 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 import torch
 
 import test_torch_constraints
+import test_torch_contact
 import test_torch_estimation
 import test_torch_fused_smooth
 import test_torch_ilqg
@@ -77,13 +84,17 @@ def test_port_matches_jax():
     task_names = test_torch_tasks.NAMES
     est_names = test_torch_estimation.NAMES
     planner_names = test_torch_planners.NAMES
+    contact_names = test_torch_contact.NAMES
     with ProcessPoolExecutor(
             max_workers=len(names) + len(serving_names) + len(ilqg_names)
-            + len(task_names) + len(est_names) + len(planner_names) + 1,
+            + len(task_names) + len(est_names) + len(planner_names)
+            + len(contact_names) + 1,
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
         planners = [procs.submit(test_torch_planners.reference, n)
                     for n in planner_names]
+        contact = [procs.submit(test_torch_contact.reference, n)
+                   for n in contact_names]
         ilqg = [procs.submit(test_torch_ilqg.reference, n)
                 for n in ilqg_names]
         estimation = [procs.submit(test_torch_estimation.reference, n)
@@ -126,6 +137,9 @@ def test_port_matches_jax():
         test_torch_planners.run_reference_checks(
             {n: f.result() for n, f in zip(planner_names, planners)},
             rl_refs["env"])
+        test_torch_contact.run_local_checks()
+        test_torch_contact.run_reference_checks(
+            {n: f.result() for n, f in zip(contact_names, contact)})
         est_local.result()
         est_checks.result()
         swimmer.result()

@@ -230,16 +230,21 @@ def check_later_slice_paths_raise():
     torch.testing.assert_close(s_big.qvel, s_ref.qvel, rtol=0, atol=1e-6)
     torch.testing.assert_close(info_big.contact_force,
                                info_ref.contact_force, rtol=0, atol=1e-4)
-    # what a later slice brings still raises: gravcomp (item 9e), and a
-    # contact model whose top-k selection needs B2's per-env dmask
+    # gravcomp steps since slice 9 ("contact"): a fully compensated
+    # ball above the floor stays at rest; what a later slice brings
+    # still raises: a contact model whose top-k selection needs B2's
+    # per-env dmask (item 9e, queue 2)
     b = ModelBuilder()
-    body = b.add_body("ball", -1, mass=1.0, inertia=(0.1, 0.1, 0.1),
-                      gravcomp=1.0)
+    body = b.add_body("ball", -1, pos=(0.0, 0.0, 1.0), mass=1.0,
+                      inertia=(0.1, 0.1, 0.1), gravcomp=1.0)
     b.add_joint("root", body, JointType.FREE)
     b.add_sphere(body, radius=0.1)
     heavy = b.finalize(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        step(heavy, make_state(heavy), torch.zeros(1, 0))
+    assert route(heavy) == "contact"
+    s_heavy, info_heavy = step(heavy, make_state(heavy), torch.zeros(1, 0))
+    assert float(info_heavy.qacc.abs().max()) < 1e-5
+    torch.testing.assert_close(s_heavy.qpos, make_state(heavy).qpos,
+                               rtol=0, atol=1e-7)
     b = ModelBuilder()
     body = b.add_body("ball", -1, mass=1.0, inertia=(0.1, 0.1, 0.1))
     b.add_joint("root", body, JointType.FREE)

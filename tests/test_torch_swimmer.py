@@ -248,9 +248,11 @@ def check_mpc():
 
 def check_registry():
     assert registry.list_tasks() == [
-        "Acrobot", "Cartpole", "Humanoid Cap Stand", "Humanoid Cap Walk",
-        "Particle", "ParticleFixed", "Quadruped Flat", "Quadruped Hill",
-        "Swimmer", "Walker"]
+        "Acrobot", "Bimanual Handover", "Cartpole", "FreeFingers",
+        "Humanoid Cap Stand", "Humanoid Cap Walk", "Humanoid Stand",
+        "Humanoid Track", "Humanoid Walk", "OP3", "Panda", "Particle",
+        "ParticleFixed", "PickAndPlace", "Quadrotor", "Quadruped Flat",
+        "Quadruped Hill", "Swimmer", "Walker"]
     assert set(registry.list_tasks()) <= set(jregistry.list_tasks())
     task = registry.get_task("Swimmer", dtype=torch.float64, device="cpu")
     assert task.name == "Swimmer" and task.nres == 7

@@ -278,7 +278,11 @@ def check_tasks():
         task_leaves_equal(jax_task("Quadruped Flat", gait=gait),
                           port_task("Quadruped Flat", gait=gait))
     assert set(registry.list_tasks()) <= set(jregistry.list_tasks())
-    assert set(NEW) | {"Humanoid Cap Stand", "Swimmer"} == \
+    # the contact-rich tier (slice 9) is tests/test_torch_contact.py's
+    contact = {"Bimanual Handover", "FreeFingers", "Humanoid Stand",
+               "Humanoid Track", "Humanoid Walk", "OP3", "Panda",
+               "PickAndPlace", "Quadrotor"}
+    assert set(NEW) | {"Humanoid Cap Stand", "Swimmer"} | contact == \
         set(registry.list_tasks())
     for name in MODELS:
         np.testing.assert_array_equal(
