@@ -122,6 +122,20 @@ the port's three paths:
   Quadrotor's hover, OP3 settling from its keyframe, Panda holding its
   pose under gravcomp and an iLQG Agent on Humanoid Stand
   (`task_loops`);
+- the top-k tier (Allegro, Shadow, Bimanual Insert and Reorient,
+  Humanoid Interact, Rubik: models whose step keeps its top-k contact
+  selection, so that B2 takes the selected slots' per-env chain mask;
+  Rubik at nv 36, B2's two matrix rows a lane) inside the task slice's
+  phases: B2 with the per-env mask against its twins on settled states
+  at B = 1024, 300 and 1, its bitwise repeat, NaN env, bare time and
+  bound (`task_kernels`); one B2 a step (`task_routing`); a 1024 x 100
+  rollout under each task (`task_rollouts`); the JAX tests' Allegro and
+  Shadow keyframe grasps held 300 steps and Reorient's cross settling
+  200 (`task_loops`); an iLQG Agent a task (`task_agents`); and, on the
+  Handover's and the cap humanoid's settled states, B2 launched with the
+  static mask broadcast per env equal to the static launch bit for bit,
+  and its refusal of nv 70 and of a per-env chain area over a block
+  (`b2_per_env_equals_static`);
 - bench.py's handover8191x128 cell (after the planner slice, before
   estimation): the Handover's predictive-sampling plan at 8191 x 128 x
   4 linear knots with 1 solver iteration (3 timed plans: latency,
@@ -133,11 +147,14 @@ the port's three paths:
   candidates must all stay finite (`handover`).
 
 Each path is driven with the kernels' launch counters set to 0 just
-before it and read just after. The `environment` line carries B1's and
+before it and read just after. The `environment` line carries ptxas's
+registers, stack and spill bytes per kernel function (B2's four
+instantiations among them), B1's and
 B2's occupancy on the humanoid and B3's on the Swimmer's rows, the
 humanoid's rows and the nv-36 case (envs and shared bytes per block,
 shared bytes per env, blocks per SM, registers and spills), and B1's
-with per-env packs, and each new task model's (`task_occupancy`). It
+with per-env packs, and each new task model's (`task_occupancy`; B2's
+per-env instantiation on the top-k tier). It
 prints a `kernels` JSON line (time, launch
 count, plain-twin time and roofline bound per kernel; B1's and B2's
 rows also their RL and serving launches (iLQG's too) and their times
@@ -291,27 +308,31 @@ def solve_trace(M, qf, qv, raw, dmask, lim_tab, niter=8):
 
 def solve_cost(m, B, dmask, lim_tab, f, trace):
     """(bytes, flops) kernel B2 must move / do on this run's data. Bytes:
-    per-env inputs and outputs once each, the shared mask, damping and dt
-    once. Flops (an FMA is two) of the algorithm, not of the kernel's
-    loops: J built once; J x and J p at 12 flops per chain dof; M⁻¹ from
-    the factor for diag(J M⁻¹ Jᵀ); the gradient and Hessian updates only
-    for the slots and limit rows active in each iteration, and the
-    16-point line search only for the edges that are active somewhere
-    on its grid (r < 0 or r + 4 J p < 0), both read from the twin's
-    iterations."""
-    nv, K, nlim = m.nv, m.ncon, len(lim_tab)
+    per-env inputs and outputs once each (a per-env mask among them),
+    the shared mask, damping and dt once. Flops (an FMA is two) of the
+    algorithm, not of the kernel's loops: J built once; J x and J p at
+    12 flops per chain dof; M⁻¹ from the factor for diag(J M⁻¹ Jᵀ); the
+    gradient and Hessian updates only for the slots and limit rows
+    active in each iteration, and the 16-point line search only for the
+    edges that are active somewhere on its grid (r < 0 or r + 4 J p <
+    0), both read from the twin's iterations. Each env's own chain dofs
+    count: a static mask's, or the env's selected slots' under a per-env
+    mask."""
+    nv, nlim = m.nv, len(lim_tab)
+    K = dmask.shape[-2]
+    per_env = dmask.ndim == 3
     dmask = dmask.to(f.device)
-    nz = (dmask != 0).sum(dim=1).double()             # (K,) chain dofs
+    nz = (dmask != 0).sum(dim=-1).double().expand(B, K)   # chain dofs
     nzl = torch.tensor([float(sum(c != 0 for c in row)) for row in lim_tab],
                        dtype=torch.float64, device=f.device)
-    chain = float(nz.sum())
-    n_in = nv * nv + 8 * nv + 13 * K + 4 * nlim
+    chain = nz.sum(dim=1)                                  # (B,)
+    n_in = nv * nv + 8 * nv + 13 * K + 4 * nlim + (K * nv if per_env else 0)
     n_out = 3 * nv + K
-    shared = K * nv + nv + 1
-    setup = (nv ** 3 / 3 + 2 * nv * nv                # chol(M), a_smooth
+    shared = (0 if per_env else K * nv) + nv + 1
+    setup = (nv ** 3 / 3 + 2 * nv * nv               # chol(M), a_smooth
              + 2 * nv ** 3 / 3                        # M⁻¹ from the factor
              + 30 * K + 42 * chain                    # frames, J, J qvel
-             + float((12 * nz * nz + 22 * nz).sum())  # diag(J M⁻¹ Jᵀ)
+             + (12 * nz * nz + 22 * nz).sum(dim=1)    # diag(J M⁻¹ Jᵀ)
              + 100 * K                                # D, aref per edge
              + float((2 * nzl * nzl + 2 * nzl + 10).sum()))
     per_it = (12 * chain + 30 * K + float((2 * nzl + 1).sum())  # J x - aref
@@ -321,7 +342,7 @@ def solve_cost(m, B, dmask, lim_tab, f, trace):
               + 2 * nv * nv + 6 * nv + 2 * 16)        # pMp, b0, dphi, x
     final = (12 * chain + 60 * K + float((2 * nzl + 3).sum())   # r, f
              + nv ** 3 / 3 + 2 * nv * nv + 3 * nv)    # Euler
-    flops = B * (setup + len(trace) * per_it + final)
+    flops = float((setup + len(trace) * per_it + final).sum())
     for r, Jp in trace:
         act = (r[:, nlim:].reshape(B, 10, K) < 0).any(dim=1).double()
         flops += float((act * (36 * nz + 6 * nz * (nz + 1) + 50)).sum())
@@ -1299,9 +1320,12 @@ def device_rows(fn):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # a spin of the card (~0.5 ms) on either side of fn, left out of
-        # the rows: fn's first and last launches then lie well inside
-        # the trace
+        # the first kernels of a session can go unrecorded (the leading
+        # spin below never shows; on some runs a port kernel after it
+        # went too): 50 ms of host time first, then a spin of the card
+        # (~0.5 ms) on either side of fn, left out of the rows: fn's
+        # first and last launches then lie well inside the trace
+        time.sleep(0.05)
         torch.cuda._sleep(1_000_000)
         torch.cuda.synchronize()
         fn()
@@ -1316,18 +1340,19 @@ def device_rows(fn):
     return sorted(rows, key=lambda x: -x[2])
 
 
-def profile_rows_complete(fn, want, sessions=1, attempts=3):
+def profile_rows_complete(fn, want, sessions=1, attempts=5):
     """`profile_rows` of `sessions` fn() calls, each in a profiler
     session of its own (a 30 k-launch session has dropped launches) that
     saw `want` launches of the port's kernels; a session that dropped
-    some or recorded nothing (CUPTI has done both, now and then) is run
-    again a second later, up to `attempts` times. Returns (the rows
-    merged by kernel, the sessions run)."""
+    some or recorded nothing (CUPTI has done both, now and then, once
+    three times in a row a second apart, after a 6 k-launch session) is
+    run again 1, 2, 4 and 8 s later. Returns (the rows merged by kernel,
+    the sessions run)."""
     merged, runs = {}, 0
     for _ in range(sessions):
         for attempt in range(attempts):
             if attempt:
-                time.sleep(1.0)
+                time.sleep(2.0 ** (attempt - 1))
             runs += 1
             rows = device_rows(fn)
             seen = sum(x[1] for x in rows if any(
@@ -2403,11 +2428,16 @@ TASK_NAMES = ("Acrobot", "Cartpole", "Humanoid Cap Walk", "Particle",
 CONTACT_MODELS = ("Humanoid Stand", "Humanoid Track", "OP3", "Panda",
                   "PickAndPlace", "FreeFingers", "Quadrotor",
                   "Bimanual Handover")
+# the top-k tier: models whose step keeps its top-k contact selection
+# (nv·(nlim + 10 ncon) over 16384), so that B2 solves the k smallest gaps
+# with their per-env chain mask; Rubik at nv 36 (B2's two rows a lane)
+TOPK_MODELS = ("Allegro", "Shadow", "Bimanual Insert", "Bimanual Reorient",
+               "Humanoid Interact", "Rubik")
 TASK_ROUTES = {"Humanoid Cap Walk": "smooth", "Walker": "smooth",
                "Quadruped Flat": "smooth", "Quadruped Hill": "contact",
                "Cartpole": "rows", "Acrobot": "free", "Particle": "free",
                "ParticleFixed": "free",
-               **dict.fromkeys(CONTACT_MODELS, "contact")}
+               **dict.fromkeys(CONTACT_MODELS + TOPK_MODELS, "contact")}
 ROUTE_LAUNCHES = {"smooth": {"smooth": 1, "solver": 1, "euler": 0},
                   "contact": {"smooth": 0, "solver": 1, "euler": 0},
                   "rows": {"smooth": 0, "solver": 0, "euler": 1},
@@ -2415,11 +2445,14 @@ ROUTE_LAUNCHES = {"smooth": {"smooth": 1, "solver": 1, "euler": 0},
 # the models the rollouts run (ParticleFixed shares Particle's model)
 TASK_ROLLOUTS = ("Walker", "Quadruped Flat", "Quadruped Hill",
                  "Humanoid Cap Walk", "Cartpole", "Acrobot",
-                 "Particle") + CONTACT_MODELS
+                 "Particle") + CONTACT_MODELS + TOPK_MODELS
 # the models whose kernels are held against their twins
 TASK_KERNELS = ("Walker", "Quadruped Flat", "Quadruped Hill",
-                "Cartpole") + CONTACT_MODELS
+                "Cartpole") + CONTACT_MODELS + TOPK_MODELS
 TASK_SETTLE = 50
+# the models on which B2's per-env launch of the broadcast static mask is
+# held to the static launch, bit for bit
+PER_ENV_CHECK = ("Bimanual Handover", "Humanoid Cap Walk")
 TASK_BATCHES = (BENCH_BATCH, 300, 1)
 # the family's rollouts are timed once, by their counted run (a
 # 1024 x 100 rollout of ~3,000 launches a step takes 2-7 s); one
@@ -2432,6 +2465,8 @@ CONTACT_RK4_BATCH = 64
 CARTPOLE_ILQG_ITERS = 8
 # the family's loops: Panda's hold and iLQG on Humanoid Stand, cut
 CONTACT_HOLD_STEPS, CONTACT_ILQG_TICKS = 150, 2
+# the top-k tier's loops, at the JAX tests' lengths
+HAND_HOLD_STEPS, REORIENT_SETTLE_STEPS = 300, 200
 
 
 def task_states(name, m, B, seed=0):
@@ -2443,9 +2478,10 @@ def task_states(name, m, B, seed=0):
     terrain at points around the hill (radius 0.5-2.5 m); Cartpole's
     carts spread over the rail and into its limits. The contact family:
     every hinge and slide + 0.03 N; controls the humanoid's 0.1 N, OP3's
-    keyframe servo targets + 0.05 N, the Handover's home targets + 0.02
-    N, the Quadrotor's hover thrust + 0.5 N with half the craft standing
-    on the floor, the others in the middle 40%."""
+    keyframe servo targets + 0.05 N, the bimanual models' home targets +
+    0.02 N, the Quadrotor's hover thrust + 0.5 N with half the craft
+    standing on the floor, the others in the middle 40%; the top-k tier
+    as the family."""
     from humanoid_mujoco_torch.physics.model import JointType
     from humanoid_mujoco_torch.tasks import aloha, home_qpos
     from humanoid_mujoco_torch.tasks.quadruped import home_ctrl
@@ -2456,7 +2492,7 @@ def task_states(name, m, B, seed=0):
     qvel = 0.1 * rng.standard_normal((B, nv))
     lo, hi = m.act_ctrlrange.double().cpu().numpy().T
     ctrl = rng.uniform(lo + 0.3 * (hi - lo), hi - 0.3 * (hi - lo), (B, nu))
-    if name in CONTACT_MODELS:
+    if name in CONTACT_MODELS + TOPK_MODELS:
         s = m.struct
         for j in range(s.njnt):
             if s.jnt_type[j] in (JointType.HINGE, JointType.SLIDE):
@@ -2465,7 +2501,7 @@ def task_states(name, m, B, seed=0):
             ctrl = 0.1 * rng.standard_normal((B, nu))
         elif name == "OP3":
             ctrl = qpos[:1, 7:] + 0.05 * rng.standard_normal((B, nu))
-        elif name == "Bimanual Handover":
+        elif name.startswith("Bimanual"):
             ctrl = aloha.home_ctrl(m).double().cpu().numpy() \
                 + 0.02 * rng.standard_normal((B, nu))
         elif name == "Quadrotor":
@@ -2512,15 +2548,20 @@ def settled_states(name, m, B, seed=0, n=TASK_SETTLE):
 
 def contact_solve_inputs(m, qpos, qvel, ctrl):
     """Kernel B2's inputs of the "contact" route (the plain smooth stage,
-    collision, the raw contact and limit data): the 18 arguments of
-    solve_step_raw before lim_tab."""
-    from humanoid_mujoco_torch.physics.collision import collide
+    collision, the top-k selection where the step keeps it, the raw
+    contact and limit data): the 18 arguments of solve_step_raw before
+    lim_tab, the mask per env (B, k, nv) after a selection."""
+    from humanoid_mujoco_torch.physics.collision import (collide,
+                                                         select_contacts)
     from humanoid_mujoco_torch.physics.engine import prepare_smooth
     from humanoid_mujoco_torch.physics.solver import (contact_raw,
                                                       limit_rows_data)
+    from humanoid_mujoco_torch.physics.step import keeps_selection
     kin, _, M, qf = prepare_smooth(m, qpos, qvel, ctrl)
-    c = collide(m, kin.xpos, kin.xmat)
-    dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, c)
+    c, sel = collide(m, kin.xpos, kin.xmat), None
+    if keeps_selection(m):
+        c, sel = select_contacts(c, m.struct.max_contacts)
+    dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, c, sel)
     lpos, kl, bl, dl = limit_rows_data(m, qpos)
     return (M, qf, qvel, kin.cdof, rel, c.normal, c.dist, mu3, dmask, kc,
             bc, dc, lpos, kl, bl, dl, m.dt * m.dof_damping, m.dt)
@@ -2540,6 +2581,19 @@ def route_solve_inputs(way, m, qpos, qvel, ctrl):
     ref = fused_smooth.smooth_raw_reference(m, qpos, qvel, ctrl)
     return (ref[0], ref[1], qvel, *ref[2:7], contact_dmask(m), *ref[7:14],
             m.dt * m.dof_damping, m.dt)
+
+
+def b2_kw(m, dmask, lim_tab):
+    """Kernel B2's keywords for this model and mask: lim_tab, and with a
+    per-env mask the chain area the step sizes (the model's k longest
+    slot chains, `fused_solver.chain_bound`)."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    from humanoid_mujoco_torch.physics.solver import contact_dmask
+    kw = {"lim_tab": lim_tab}
+    if dmask.ndim == 3:
+        kw["chain_max"] = fused_solver.chain_bound(contact_dmask(m),
+                                                   dmask.shape[1])
+    return kw
 
 
 def against_twins(solve, twin, args, kw, names):
@@ -2599,7 +2653,7 @@ def b2_row(m, solve_in, lim_tab, device, timer, max_abs_err, niter=8):
     activation boundary (`knife_edges`)."""
     from humanoid_mujoco_torch.physics import fused_solver
     B = solve_in[0].shape[0]
-    kw = {"lim_tab": lim_tab, "niter": niter}
+    kw = {**b2_kw(m, solve_in[8], lim_tab), "niter": niter}
     efc, x, f_t, trace = solve_trace(
         solve_in[0], solve_in[1], solve_in[2],
         solve_in[3:8] + solve_in[9:16], solve_in[8], lim_tab, niter)
@@ -2607,7 +2661,7 @@ def b2_row(m, solve_in, lim_tab, device, timer, max_abs_err, niter=8):
     bound_ms, bound_by = bound(nbytes, flops)
     return {
         "ms": bare_kernel_ms("solver", fused_solver._solver_launch_args(
-            *solve_in, lim_tab, niter, 16), device),
+            *solve_in, lim_tab, niter, 16, kw.get("chain_max")), device),
         "wrapper_ms": timer(
             lambda: fused_solver.solve_step_raw(*solve_in, **kw), 20),
         "plain_ms": timer(
@@ -2654,7 +2708,7 @@ def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
             _, res["solver"] = against_twins(
                 fused_solver.solve_step_raw,
                 fused_solver.solve_step_raw_reference, solve_in,
-                {"lim_tab": lim_tab}, b2_names)
+                b2_kw(m, solve_in[8], lim_tab), b2_names)
             res["loaded_slots_mean"] = float(
                 (solve_in[6] < 0).sum(dim=1).double().mean())
         if way == "rows":
@@ -2678,8 +2732,9 @@ def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
     if device != "cpu" and way == "smooth":
         out["smooth_isolation"] = smooth_isolation(m, qpos, qvel, ctrl)
     if device != "cpu" and way in ("smooth", "contact"):
+        kw = b2_kw(m, solve_in[8], lim_tab)
         out["solver_isolation"] = isolation(
-            m, lambda *a: fused_solver.solve_step_raw(*a, lim_tab=lim_tab),
+            m, lambda *a: fused_solver.solve_step_raw(*a, **kw),
             solve_in, model_states)
     if device != "cpu" and way == "rows":
         out["euler_isolation"] = isolation(
@@ -2723,6 +2778,65 @@ def task_kernel_checks(name, m, device, timer, batches=TASK_BATCHES):
     fused_smooth.LAUNCHES, fused_solver.LAUNCHES = n["smooth"], n["solver"]
     fused_solver.EULER_LAUNCHES = n["euler"]
     return out, rows
+
+
+def b2_per_env_equals_static(m, solve_in, lim_tab, device):
+    """Kernel B2 on a model's selection-free inputs `solve_in` launched
+    with its static mask broadcast per env (contact_dmask(m)[None]
+    .expand(B, K, nv), the chain area of all K slots) gives the static
+    launch's bits (asserted on the card); both timed bare."""
+    from humanoid_mujoco_torch.physics import fused_solver
+    dm = solve_in[8]
+    B, (K, nv) = solve_in[0].shape[0], dm.shape
+    per_env = solve_in[:8] + (dm[None].expand(B, K, nv),) + solve_in[9:]
+    kw = b2_kw(m, per_env[8], lim_tab)
+    a = fused_solver.solve_step_raw(*solve_in, lim_tab=lim_tab)
+    b = fused_solver.solve_step_raw(*per_env, **kw)
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    out = {"batch": B, "slots": K, "chain_max": kw["chain_max"],
+           "bitwise_equal": equal,
+           "static_ms": bare_kernel_ms("solver",
+                                       fused_solver._solver_launch_args(
+                                           *solve_in, lim_tab, 8, 16),
+                                       device),
+           "per_env_ms": bare_kernel_ms("solver",
+                                        fused_solver._solver_launch_args(
+                                            *per_env, lim_tab, 8, 16,
+                                            kw["chain_max"]), device)}
+    if device != "cpu":
+        assert equal, out
+    return out
+
+
+def b2_topk_refusals(device):
+    """Kernel B2 refuses, with ValueError before any launch (the launch
+    counter unchanged), a per-env mask at nv 70 (over its cap of 64
+    dofs) and a per-env mask whose chain area outgrows a block's shared
+    memory (2,000 slots over every dof of a 6-dof model)."""
+    from humanoid_mujoco_torch.physics import fused_solver
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    def args(nv, K):
+        return (torch.eye(nv, device=device)[None], z(1, nv), z(1, nv),
+                z(1, nv, 6), z(1, K, 3), z(1, K, 3), z(1, K), z(1, K, 3),
+                torch.ones((1, K, nv), device=device), z(1, K), z(1, K),
+                z(1, K), z(1, 0), z(1, 0), z(1, 0), z(1, 0), z(nv), 0.01)
+    n = fused_solver.LAUNCHES
+    out = {}
+    for key, (nv, K), why in (("nv70", (70, 16), "at most 64 dofs"),
+                              ("slots2000", (6, 2000),
+                               "bytes of shared memory")):
+        try:
+            fused_solver.solve_step_raw(*args(nv, K))
+        except ValueError as e:
+            assert why in str(e), e
+            out[key] = str(e)
+        else:
+            raise AssertionError(f"B2 launched an oversize model ({key})")
+    assert fused_solver.LAUNCHES == n
+    return out
 
 
 def task_routing(name, device):
@@ -2788,7 +2902,7 @@ def task_rollout(name, m, B, horizon, seed=6):
 
 
 def task_rollouts(device, timer, B, horizon, profile="Walker",
-                  short=2, sessions=5):
+                  short=2, sessions=3):
     """The 1024 x 100 rollout of each model under its task: ms (CUDA
     events, median of 3 after the counted run; the contact family's
     counted run), steps/s, kernel launches
@@ -2807,7 +2921,7 @@ def task_rollouts(device, timer, B, horizon, profile="Walker",
         counters_zero()
         res, ms = timer.once(rollout)     # counted, and the warm-up
         n = counters()
-        if name not in CONTACT_MODELS:
+        if name not in CONTACT_MODELS + TOPK_MODELS:
             ms = timer(rollout, 3)
         launches[name] = n
         r = {"batch": B, "horizon": horizon, "ms": ms,
@@ -2986,8 +3100,9 @@ def acrobot_pumps(device):
 
 
 def task_agents(device):
-    """`Agent(task_model(name), name)` for each task at its default
-    planner (iLQG, horizon 17): one planner_step and one get_action from
+    """`Agent(task_model(name), name)` for each task of the first tier
+    and the top-k tier at its default planner (iLQG, horizon 17): one
+    planner_step and one get_action from
     the home keyframe (Quadruped Hill's on the slope at the first
     waypoint; Humanoid Cap Walk in mode "Walk"), with the kernels each
     launched."""
@@ -2995,7 +3110,7 @@ def task_agents(device):
     from humanoid_mujoco_torch.tasks import home_qpos, task_model
     from humanoid_mujoco_torch.tasks.quadruped_hill import hill_height_np
     out, launches = {}, {}
-    for name in TASK_NAMES:
+    for name in TASK_NAMES + TOPK_MODELS:
         m = task_model(name, device=device)
         a = Agent(m, name)
         if name == "Humanoid Cap Walk":
@@ -3033,6 +3148,7 @@ def task_occupancy():
     from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
     from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                       limit_rows_static)
+    from humanoid_mujoco_torch.physics.step import keeps_selection
     from humanoid_mujoco_torch.tasks import task_model
     out = {}
     for name in TASK_KERNELS:
@@ -3041,7 +3157,12 @@ def task_occupancy():
         occ = {}
         if TASK_ROUTES[name] == "smooth":
             occ["smooth"] = fused_smooth.smooth_occupancy(m)
-        if m.ncon:
+        if m.ncon and keeps_selection(m):
+            k = m.struct.max_contacts
+            occ["solver_per_env"] = fused_solver.solver_occupancy(
+                m.nv, k, nlim, fused_solver.chain_bound(contact_dmask(m), k),
+                per_env=True)
+        elif m.ncon:
             occ["solver"] = fused_solver.solver_occupancy(
                 m.nv, m.ncon, nlim,
                 len(fused_solver.chain_layout(contact_dmask(m))[1]))
@@ -3057,8 +3178,11 @@ def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
     them: `task_kernels` (each model's kernels against their twins,
     `task_kernel_checks`), `task_routing`, `task_rollouts`, `task_loops`
     (the JAX task tests' closed loops and the family's), `task_agents`,
-    `task_walls`. Returns each kernel's numbers on these models for the
+    `task_walls`, and `b2_per_env_equals_static` (B2's per-env launch
+    of a broadcast static mask against the static launch, and its
+    refusals). Returns each kernel's numbers on these models for the
     kernel table."""
+    from humanoid_mujoco_torch.physics.solver import limit_rows_static
     from humanoid_mujoco_torch.tasks import task_model
     timer = Timer(device)
     walls, t_all = {}, time.perf_counter()
@@ -3071,9 +3195,21 @@ def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
         for k, r in krows.items():
             rows[k][name] = r
     walls["task_kernels_s"] = time.perf_counter() - t0
+    t0, per_env = time.perf_counter(), {}
+    for name in PER_ENV_CHECK:
+        m = task_model(name, device=device)
+        main = settled_states(name, m, B, seed=21)
+        per_env[name] = b2_per_env_equals_static(
+            m, route_solve_inputs(TASK_ROUTES[name], m, *main),
+            limit_rows_static(m), device)
+    if device != "cpu":
+        per_env["refusals"] = b2_topk_refusals(device)
+    log("b2_per_env_equals_static", gpu=gpu, **per_env)
+    walls["b2_per_env_equals_static_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("task_routing", **{n: task_routing(n, device)
-                           for n in TASK_NAMES + CONTACT_MODELS})
+                           for n in TASK_NAMES + CONTACT_MODELS
+                           + TOPK_MODELS})
     walls["task_routing_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ro, ro_launches = task_rollouts(device, timer, B, horizon)
@@ -3095,7 +3231,13 @@ def run_tasks(device="cuda", gpu="cpu", B=BENCH_BATCH,
             ("op3_settles", "OP3", lambda: op3_settles(device)),
             ("panda_gravcomp_hold", "Panda", lambda: panda_holds(device)),
             ("humanoid_stand_ilqg", "Humanoid Stand",
-             lambda: humanoid_stand_ilqg(device))):
+             lambda: humanoid_stand_ilqg(device)),
+            ("allegro_holds_grasp", "Allegro",
+             lambda: hand_holds(device, "Allegro")),
+            ("shadow_holds_grasp", "Shadow",
+             lambda: hand_holds(device, "Shadow")),
+            ("reorient_cross_settles", "Bimanual Reorient",
+             lambda: reorient_settles(device))):
         counters_zero()
         t0 = time.perf_counter()
         loops[key] = fn()
@@ -4599,6 +4741,69 @@ def panda_holds(device):
     return out
 
 
+def hand_holds(device, name):
+    """tests/test_tasks_suite.py:506-540 on the port: the Allegro or
+    Shadow hand under its keyframe servo targets for 300 steps from its
+    home keyframe (a finite residual there): no step diverges, the cube
+    stays at or above the hand (its height over its half size less 1
+    mm) and within 0.15 m of its start in xy."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import forward, step
+    from humanoid_mujoco_torch.tasks import get_task, hands, task_model
+    hand = name.lower()
+    m = task_model(name, device=device)
+    task = get_task(name, device=device)
+    key = hands._KEY_HAND[hand]
+    s = make_state(m, qpos=hands._home_qpos(hand, m))
+    zero = torch.zeros((1, m.nu), dtype=m.dtype, device=m.device)
+    _, _, _, info = forward(m, s, zero)
+    res = task.residual(m, s, info, zero)
+    u = torch.tensor(key, dtype=m.dtype, device=m.device)[None]
+    div = False
+    for _ in range(HAND_HOLD_STEPS):
+        s, info = step(m, s, u)
+        div |= bool(info.diverged.any())
+    n = len(key)
+    cube = s.qpos[0, n:n + 3].double().cpu().numpy()
+    start = np.asarray(hands._CUBE[hand]["pos"][:2])
+    half = hands._CUBE[hand]["half"]
+    out = {"steps": HAND_HOLD_STEPS, "cube_z": float(cube[2]),
+           "cube_xy_drift": float(np.linalg.norm(cube[:2] - start)),
+           "thresholds": {"cube_z_min": half - 1e-3, "xy_drift": 0.15},
+           "residual_finite": bool(torch.isfinite(res).all())}
+    assert not div and out["residual_finite"] \
+        and cube[2] > half - 1e-3 and out["cube_xy_drift"] < 0.15, out
+    return out
+
+
+def reorient_settles(device):
+    """tests/test_tasks_suite.py:427-455 on the port: Bimanual Reorient
+    at its home keyframe under the home controls: both grasp scores of
+    the residual are 1 (not grasping), then 200 steps, none diverged,
+    the cross rests on the table (its height in (0.01, 0.05))."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import forward, step
+    from humanoid_mujoco_torch.tasks import aloha, get_task, task_model
+    name = "Bimanual Reorient"
+    m = task_model(name, device=device)
+    task = get_task(name, device=device)
+    s = make_state(m, qpos=aloha.reorient_home_qpos(m))
+    c = aloha.home_ctrl(m)[None]
+    _, _, _, info = forward(m, s, c)
+    res = task.residual(m, s, info, c)[0]
+    div = False
+    for _ in range(REORIENT_SETTLE_STEPS):
+        s, info = step(m, s, c)
+        div |= bool(info.diverged.any())
+    z = float(s.qpos[0, 18])
+    out = {"steps": REORIENT_SETTLE_STEPS, "nres": int(res.numel()),
+           "grasp_scores": [float(x) for x in res[6:8]], "cross_z": z,
+           "thresholds": {"cross_z": (0.01, 0.05)}}
+    assert res.numel() == 26 and bool(torch.all(
+        (res[6:8] - 1.0).abs() < 1e-6)) and not div and 0.01 < z < 0.05, out
+    return out
+
+
 def humanoid_stand_ilqg(device):
     """An iLQG Agent on Humanoid Stand: CONTACT_ILQG_TICKS ticks of
     planner_step and step from the stand keyframe, the stand cost beside
@@ -4666,8 +4871,11 @@ def main():
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
+    # per function (B2's four instantiations: R = 1 or 2, static or
+    # per-env mask): its name, registers, stack and spill bytes
     ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Function properties" in ln]
              for k, v in kernels.BUILD_LOG.items()}
     from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
                                                humanoid)

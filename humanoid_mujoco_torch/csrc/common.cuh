@@ -250,8 +250,8 @@ __device__ inline void warp_tri_inv(const float* L, const float* inv, int n,
   __syncwarp();
 }
 
-// The same three helpers for n up to 32 R (kernel B3 takes them at R = 2
-// for 32 < nv <= 64): a lane owns the matrix rows lane + 32 q, q < R.
+// The same three helpers for n up to 32 R (kernels B2 and B3 take them
+// at R = 2 for 32 < nv <= 64): a lane owns the matrix rows lane + 32 q, q < R.
 // Row j's value sits in slot j >> 5 of lane j & 31; `pick` reads that
 // slot (j is the same on every lane) and `src` names that lane.
 template <int R>
@@ -376,6 +376,33 @@ __device__ inline void warp_tri_inv_rows(const float* L, const float* inv, int n
     }
   }
   __syncwarp();
+}
+
+// The warp's Cholesky, solve and L⁻¹ at R matrix rows per lane (B2 and
+// B3 are templates on R): the n <= 32 helpers at R = 1, their
+// two-rows-a-lane forms at R = 2.
+template <int R>
+__device__ __forceinline__ void chol(float* A, int n, int ld, float* inv) {
+  if constexpr (R == 1)
+    warp_chol(A, n, ld, inv);
+  else
+    warp_chol_rows<R>(A, n, ld, inv);
+}
+template <int R>
+__device__ __forceinline__ void chol_solve(const float* L, const float* inv,
+                                           int n, int ld, float (&b)[R]) {
+  if constexpr (R == 1)
+    b[0] = warp_chol_solve(L, inv, n, ld, b[0]);
+  else
+    warp_chol_solve_rows<R>(L, inv, n, ld, b);
+}
+template <int R>
+__device__ __forceinline__ void tri_inv(const float* L, const float* inv,
+                                        int n, int ld, float* Li) {
+  if constexpr (R == 1)
+    warp_tri_inv(L, inv, n, ld, Li);
+  else
+    warp_tri_inv_rows<R>(L, inv, n, ld, Li);
 }
 
 }  // namespace hm

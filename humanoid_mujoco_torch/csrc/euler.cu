@@ -119,32 +119,6 @@ struct EulerArgs {
   int B, nv, ne, niter, nls, envs;
 };
 
-// The warp's Cholesky, solve and L⁻¹ at R matrix rows per lane: the
-// n <= 32 helpers at R = 1, their two-rows-a-lane forms at R = 2.
-template <int R>
-__device__ __forceinline__ void chol(float* A, int n, int ld, float* inv) {
-  if constexpr (R == 1)
-    warp_chol(A, n, ld, inv);
-  else
-    warp_chol_rows<R>(A, n, ld, inv);
-}
-template <int R>
-__device__ __forceinline__ void chol_solve(const float* L, const float* inv,
-                                           int n, int ld, float (&b)[R]) {
-  if constexpr (R == 1)
-    b[0] = warp_chol_solve(L, inv, n, ld, b[0]);
-  else
-    warp_chol_solve_rows<R>(L, inv, n, ld, b);
-}
-template <int R>
-__device__ __forceinline__ void tri_inv(const float* L, const float* inv,
-                                        int n, int ld, float* Li) {
-  if constexpr (R == 1)
-    warp_tri_inv(L, inv, n, ld, Li);
-  else
-    warp_tri_inv_rows<R>(L, inv, n, ld, Li);
-}
-
 template <int R>
 __global__ void __launch_bounds__(32 * ENVS_MAX) euler_kernel(EulerArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];

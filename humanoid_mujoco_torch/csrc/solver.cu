@@ -7,7 +7,9 @@
 // `fused_rows_batched`). Per environment: the branch-free tangent frame
 // of every contact slot; the six base Jacobian rows per slot
 // [Jn, Jt1, Jt2, Js, Jr1, Jr2] from cdof × rel over the slot's chain dofs
-// (the static (K, nv) chain mask, ±1 or 0); the condim-6 pyramid Newton
+// (the chain mask, ±1 or 0: static (K, nv), or per env (B, K, nv) after
+// the step's top-k contact selection, the TPU kernel's
+// `dmask_static=False` branch); the condim-6 pyramid Newton
 // solve factorized on those base rows (Cholesky of M, diag(J M⁻¹ Jᵀ) and
 // the Gram cross terms from y = L⁻¹ Jᵀ, D and aref from the impedance,
 // then `niter` iterations of active set, gradient, H = M + Jᵀ Da J,
@@ -61,8 +63,32 @@
 //   tensor-core tile, and TF32 would keep ~3 digits where the solve
 //   needs fp32;
 // - a NaN input stays NaN (`mx` keeps it, and a slot with a NaN residual
-//   counts as touched, as the twin's Da r does), so the step's
+//   counts as touched, as the twin's Da r does; a non-finite qvel or
+//   smooth force makes the env's smooth force NaN at load, since the
+//   sparse chains would skip a dof on no slot's chain), so the step's
 //   divergence guard sees a diverged env; other envs are untouched.
+//
+// The per-env mask (template flag PE). The static path reads the mask
+// compressed on the host (slot offsets, chain dofs, signs) into tables
+// every warp of a block shares. A per-env mask (K, nv) per env arrives
+// dense and batch-last like the other contact inputs; the warp compacts
+// its env's chains into the same three tables in its own region of
+// shared memory, slot by slot: lanes over dofs, a ballot of the nonzero
+// entries, positions by prefix counts, in ascending dof order, so that
+// every later phase runs the static path's code on them (a per-env
+// launch on a broadcast static mask gives the static launch's bits).
+// The region holds C chain entries, a bound the host computes once per
+// model: the sum of its K longest slot chains, so any K of its slots
+// fit. An env whose mask exceeds it gets empty chains and a NaN smooth
+// force (the divergence guard flags it) instead of overrunning.
+//
+// nv above 32 (template parameter R): R = 2 matrix rows per lane in the
+// Cholesky, the solves and L⁻¹ (common.cuh `chol<R>`, `chol_solve<R>`,
+// `tri_inv<R>`, as kernel B3), the per-dof phases loop over a lane's R
+// dofs, and H's lower triangle is summed in passes of 544 entries (17 a
+// lane in registers, as at R = 1), the active slots streamed once a
+// pass: two passes at nv 36, four at the cap of 64. R = 1 keeps one pass
+// and the arithmetic of the nv <= 32 kernel.
 
 #include "common.cuh"
 
@@ -71,9 +97,11 @@ using namespace hm;
 namespace {
 
 constexpr int LS_MAX = 16;  // capacity of the line-search grid
-constexpr int NV_MAX = 32;  // one lane per dof in the warp solves
-// lower-triangle entries of H per lane
-constexpr int TRI_LANE = (NV_MAX * (NV_MAX + 1) / 2 + 31) / 32;
+constexpr int NV_MAX = 64;  // two matrix rows per lane above 32 dofs
+// lower-triangle entries of H a lane holds in registers in one pass over
+// the active slots: one pass covers nv <= 32, R = 2 takes up to four
+constexpr int TRI_LANE = (32 * 33 / 2 + 31) / 32;
+constexpr int TRI_PASS = 32 * TRI_LANE;
 constexpr int ENVS_MAX = 8;  // warps per block
 constexpr int NCO = 17;     // gradient / Hessian coefficients of a slot
 // offsets within one active slot's NCO coefficients
@@ -83,25 +111,29 @@ __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Dynamic shared memory of one block: the static tables (slot offsets
-// into the compressed rows, each compressed entry's dof, each (slot, dof)
-// position in its slot's chain or -1, the lower-triangle (u, w) pairs),
-// then one region of `env` floats per warp.
+// Dynamic shared memory of one block: the static tables (with a static
+// mask: slot offsets into the compressed rows, each compressed entry's
+// dof, each (slot, dof) position in its slot's chain or -1; always the
+// lower-triangle (u, w) pairs), then one region of `env` floats per
+// warp. With a per-env mask (`pe`) the first three tables and the chain
+// signs live in the env's region instead, C entries long (the model's
+// bound on any K slots' chains).
 struct Layout {
   int ld;           // row stride of the nv x nv matrices (odd)
   int ntri;         // lower-triangle entries
   int dof_at, pos_at, tri_at, table_bytes;  // byte offsets of the tables
-  int Mm, H, Jb, De, ar, re, mu, W, Dl, al, rl, vec, act, env;  // floats
+  int Mm, H, Jb, De, ar, re, mu, W, Dl, al, rl, vec, act;  // floats
+  int sg, so, sd, sp, env;  // the per-env chain tables, floats
 };
 
-__host__ __device__ inline Layout make_layout(int nv, int K, int nlim,
-                                              int C) {
+__host__ __device__ inline Layout make_layout(int nv, int K, int nlim, int C,
+                                              bool pe) {
   Layout L;
   L.ld = nv | 1;
   L.ntri = nv * (nv + 1) / 2;
-  L.dof_at = 4 * (K + 1);
-  L.pos_at = L.dof_at + C;
-  L.tri_at = round_up(L.pos_at + K * nv, 2);
+  L.dof_at = pe ? 0 : 4 * (K + 1);
+  L.pos_at = L.dof_at + (pe ? 0 : C);
+  L.tri_at = round_up(L.pos_at + (pe ? 0 : K * nv), 2);
   L.table_bytes = round_up(L.tri_at + 2 * L.ntri, 16);
   int o = 0;
   L.Mm = o;
@@ -134,6 +166,17 @@ __host__ __device__ inline Layout make_layout(int nv, int K, int nlim,
   o += 6 * nv;
   L.act = o;
   o += K;
+  L.sg = L.so = L.sd = L.sp = o;
+  if (pe) {
+    L.sg = o;  // chain signs
+    o += C;
+    L.so = o;  // slot offsets
+    o += K + 1;
+    L.sd = o;  // chain dofs, bytes
+    o += (C + 3) / 4;
+    L.sp = o;  // (slot, dof) positions, bytes
+    o += (K * nv + 3) / 4;
+  }
   L.env = round_up(o, 4);
   return L;
 }
@@ -141,8 +184,10 @@ __host__ __device__ inline Layout make_layout(int nv, int K, int nlim,
 struct SolveArgs {
   const float *M, *qf, *qv, *cdof, *rel, *nrm, *dist, *mu3, *kc, *bc, *dc,
       *lpos, *kl, *bl, *dl, *hd, *dt;
+  // the static mask compressed (ptr, dof, sign), or the per-env mask
+  // (K, nv) batch-last
   const int *slot_ptr, *slot_dof;
-  const float* slot_sgn;
+  const float *slot_sgn, *dmask;
   // limit rows: CSR (ptr, dof, coef) with each entry's row, and the
   // Hessian's pairs of entries of one row, dof_k <= dof_i: the lower-
   // triangle index of (dof_i, dof_k), the row and c_i c_k
@@ -154,11 +199,14 @@ struct SolveArgs {
   int B, nv, K, nlim, C, npair, niter, nls, envs;
 };
 
+// R matrix rows per lane in the factorizations and solves (1: nv <= 32,
+// 2: nv <= 64); PE: a per-env mask, compacted by the warp
+template <int R, bool PE>
 __global__ void __launch_bounds__(32 * ENVS_MAX)
     solve_kernel(SolveArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int B = a.B, nv = a.nv, K = a.K, nlim = a.nlim, C = a.C;
-  const Layout lay = make_layout(nv, K, nlim, C);
+  const Layout lay = make_layout(nv, K, nlim, C, PE);
   const int ld = lay.ld;
   int* soff = reinterpret_cast<int*>(smem);
   unsigned char* sdof = smem + lay.dof_at;
@@ -167,20 +215,24 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
       reinterpret_cast<unsigned short*>(smem + lay.tri_at);
 
   // ---- the block's static tables ----
-  for (int i = threadIdx.x; i <= K; i += blockDim.x)
-    soff[i] = __ldg(a.slot_ptr + i);
-  for (int i = threadIdx.x; i < C; i += blockDim.x)
-    sdof[i] = (unsigned char)__ldg(a.slot_dof + i);
-  for (int i = threadIdx.x; i < K * nv; i += blockDim.x) spos[i] = -1;
+  if constexpr (!PE) {
+    for (int i = threadIdx.x; i <= K; i += blockDim.x)
+      soff[i] = __ldg(a.slot_ptr + i);
+    for (int i = threadIdx.x; i < C; i += blockDim.x)
+      sdof[i] = (unsigned char)__ldg(a.slot_dof + i);
+    for (int i = threadIdx.x; i < K * nv; i += blockDim.x) spos[i] = -1;
+  }
   for (int t = threadIdx.x; t < lay.ntri; t += blockDim.x) {
     int u = 0;
     while ((u + 1) * (u + 2) / 2 <= t) ++u;
     tri[t] = (unsigned short)((u << 8) | (t - u * (u + 1) / 2));
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < K; c += blockDim.x)
-    for (int j = soff[c]; j < soff[c + 1]; ++j)
-      spos[c * nv + sdof[j]] = (signed char)(j - soff[c]);
+  if constexpr (!PE) {
+    for (int c = threadIdx.x; c < K; c += blockDim.x)
+      for (int j = soff[c]; j < soff[c + 1]; ++j)
+        spos[c * nv + sdof[j]] = (signed char)(j - soff[c]);
+  }
   __syncthreads();
 
   const int wid = threadIdx.x >> 5, lane = lane_id();
@@ -195,11 +247,18 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
   float *AS = S + lay.vec, *X = AS + nv, *P = AS + 2 * nv,
         *QV = AS + 3 * nv, *QF = AS + 4 * nv, *INV = AS + 5 * nv;
   int* act = reinterpret_cast<int*>(S + lay.act);
+  float* sg = S + lay.sg;
+  if constexpr (PE) {
+    soff = reinterpret_cast<int*>(S + lay.so);
+    sdof = reinterpret_cast<unsigned char*>(S + lay.sd);
+    spos = reinterpret_cast<signed char*>(S + lay.sp);
+  }
   const int* lim_ptr = a.lim_ptr;
   const int* lim_dof = a.lim_dof;
   const float* lim_coef = a.lim_coef;
   const int nnz = __ldg(lim_ptr + nlim);
   auto in = [&](const float* p, int i) { return __ldg(p + (size_t)i * B + e); };
+  const unsigned below = (1u << lane) - 1u;
 
   // b[a] = J_a(slot c) · x for the six base rows, over the chain dofs in
   // ascending order
@@ -230,6 +289,50 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
     QF[v] = in(a.qf, v);
   }
   for (int i = lane; i < 3 * K; i += 32) mu[i] = in(a.mu3, i);
+  {
+    // a non-finite qvel or smooth force poisons the whole env (as the
+    // twin's dense products do), also where the bad dof is on no slot's
+    // chain and no limit row: its qacc turns NaN, so the step flags it
+    bool bad = false;
+    for (int v = lane; v < nv; v += 32)
+      bad |= !(isfinite(QV[v]) && isfinite(QF[v]));
+    if (__ballot_sync(FULL_MASK, bad))
+      for (int v = lane; v < nv; v += 32) QF[v] = __int_as_float(0x7fc00000);
+  }
+  if constexpr (PE) {
+    // the env's slot chains from its mask, slot by slot: lanes over dofs
+    // (R a lane), a ballot of the nonzero entries, their positions by
+    // prefix counts in ascending dof order, as the static layout. An env
+    // whose chains exceed the C entries sized for it (a mask that is not
+    // K slots of the model's) gets empty chains and a NaN smooth force,
+    // so that the step's divergence guard flags it.
+    int off = 0;
+    for (int c = 0; c < K; ++c) {
+      const int start = off;
+      if (lane == 0) soff[c] = start;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int v = lane + 32 * q;
+        const float mv = v < nv ? in(a.dmask, c * nv + v) : 0.0f;
+        const unsigned bits = __ballot_sync(FULL_MASK, mv != 0.0f);
+        const int pos = off + __popc(bits & below);
+        if (v < nv)
+          spos[c * nv + v] = mv != 0.0f ? (signed char)(pos - start) : -1;
+        if (mv != 0.0f && pos < C) {
+          sdof[pos] = (unsigned char)v;
+          sg[pos] = mv;
+        }
+        off += __popc(bits);
+      }
+    }
+    if (off > C) {
+      for (int i = lane; i < K * nv; i += 32) spos[i] = -1;
+      for (int c = lane; c < K; c += 32) soff[c] = 0;
+      for (int v = lane; v < nv; v += 32) QF[v] = __int_as_float(0x7fc00000);
+      off = 0;
+    }
+    if (lane == 0) soff[K] = off;
+  }
   __syncwarp();
 
   // ---- lanes over slots: tangent frame and the six base rows ----
@@ -243,7 +346,7 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
     const V3 t2 = cross(n, t1);
     for (int j = soff[c]; j < soff[c + 1]; ++j) {
       const int v = sdof[j];
-      const float s = __ldg(a.slot_sgn + j);
+      const float s = PE ? sg[j] : __ldg(a.slot_sgn + j);
       const V3 w{W[6 * v], W[6 * v + 1], W[6 * v + 2]};
       const V3 l{W[6 * v + 3], W[6 * v + 4], W[6 * v + 5]};
       // point jacobian: cdof_lin + cdof_ang × rel, signed by the chain
@@ -260,17 +363,26 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
   __syncwarp();
 
   // ---- Cholesky of M (in H), unconstrained acceleration, L⁻¹ ----
-  warp_chol(H, nv, ld, INV);
+  chol<R>(H, nv, ld, INV);
   {
-    const float as =
-        warp_chol_solve(H, INV, nv, ld, lane < nv ? QF[lane] : 0.0f);
-    if (lane < nv) {
-      AS[lane] = as;
-      X[lane] = as;
+    float as[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = lane + 32 * q;
+      as[q] = u < nv ? QF[u] : 0.0f;
+    }
+    chol_solve<R>(H, INV, nv, ld, as);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = lane + 32 * q;
+      if (u < nv) {
+        AS[u] = as[q];
+        X[u] = as[q];
+      }
     }
   }
   float* Li = W;
-  warp_tri_inv(H, INV, nv, ld, Li);
+  tri_inv<R>(H, INV, nv, ld, Li);
 
   // ---- lanes over slots: Gram terms by y = L⁻¹ Jᵀ, then D and aref ----
   // y_r(k) = sum over the chain dofs v <= k of L⁻¹(k, v) J_r(v): for all
@@ -340,7 +452,8 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
   // r + t jp is linear in t: a row is active somewhere on the grid iff it
   // is at t = 0 or at the last grid point
   const float tmax = __ldg(a.grid + nls - 1);
-  const unsigned below = (1u << lane) - 1u;
+  // H's lower triangle in passes of TRI_PASS entries (one when R = 1)
+  const int npass = R == 1 ? 1 : (lay.ntri + TRI_PASS - 1) / TRI_PASS;
 
   // ---- Newton iterations ----
   for (int it = 0; it < a.niter; ++it) {
@@ -406,80 +519,91 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
     // The slot loops are branch-free (a slot off the dof's chain reads
     // its first entry and adds nothing), so that the loads of several
     // slots are in flight at once; the sums stay in slot order.
-    float mxu = 0.0f, gu = 0.0f;
-    if (lane < nv) {
-      const int u = lane;
-      for (int v = 0; v < nv; ++v) mxu += Mm[u * ld + v] * (X[v] - AS[v]);
-      gu = mxu;
+    float mxu[R], gu[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = lane + 32 * q;
+      mxu[q] = gu[q] = 0.0f;
+      if (u < nv) {
+        float mq = 0.0f;
+        for (int v = 0; v < nv; ++v) mq += Mm[u * ld + v] * (X[v] - AS[v]);
+        float g = mq;
 #pragma unroll 4
+        for (int j = 0; j < nact; ++j) {
+          const int c = act[j];
+          const int p = spos[c * nv + u];
+          const float* co = W + j * NCO;
+          const int o = soff[c] + max(p, 0);
+          float s = Jb[o] * co[CO_Y0];
+#pragma unroll
+          for (int i = 0; i < 5; ++i) s += Jb[(i + 1) * C + o] * co[CO_Z + i];
+          if (p >= 0) g += s;
+        }
+        for (int i = 0; i < nnz; ++i) {
+          const int l = __ldg(a.lim_row + i);
+          const float r = rl[l];
+          if (__ldg(lim_dof + i) == u && r < 0.0f)
+            g += __ldg(lim_coef + i) * Dl[l] * r;
+        }
+        mxu[q] = mq;
+        gu[q] = g;
+      }
+    }
+    // H = M + Jᵀ Da J, lanes over the lower triangle: in each pass lane l
+    // holds entries l, l + 32, ... of the pass in registers and takes the
+    // active slots in order, so that a slot's coefficients are read once
+    // a pass; then the limit rows
+    for (int pass = 0; pass < npass; ++pass) {
+      const int t0 = pass * TRI_PASS;
+      const int nr = (lay.ntri - t0 - lane + 31) / 32;
+      float hacc[TRI_LANE];
+#pragma unroll
+      for (int r = 0; r < TRI_LANE; ++r) {
+        if (r < nr) {
+          const int tt = t0 + lane + 32 * r;
+          hacc[r] = Mm[(tri[tt] >> 8) * ld + (tri[tt] & 255)];
+        }
+      }
       for (int j = 0; j < nact; ++j) {
         const int c = act[j];
-        const int q = spos[c * nv + u];
         const float* co = W + j * NCO;
-        const int o = soff[c] + max(q, 0);
-        float s = Jb[o] * co[CO_Y0];
+        const signed char* pc = spos + c * nv;
+        const int o = soff[c];
+        float ci[5], cii[5];
+        const float c0 = co[CO_C0];
 #pragma unroll
-        for (int i = 0; i < 5; ++i) s += Jb[(i + 1) * C + o] * co[CO_Z + i];
-        if (q >= 0) gu += s;
-      }
-      for (int i = 0; i < nnz; ++i) {
-        const int l = __ldg(a.lim_row + i);
-        const float r = rl[l];
-        if (__ldg(lim_dof + i) == u && r < 0.0f)
-          gu += __ldg(lim_coef + i) * Dl[l] * r;
-      }
-    }
-    // H = M + Jᵀ Da J, lanes over the lower triangle: lane l holds entries
-    // l, l + 32, ... in registers and takes the active slots in order, so
-    // that a slot's coefficients are read once; then the limit rows
-    const int nr = (lay.ntri - lane + 31) / 32;
-    float hacc[TRI_LANE];
+        for (int i = 0; i < 5; ++i) {
+          ci[i] = co[CO_CI + i];
+          cii[i] = co[CO_CII + i];
+        }
 #pragma unroll
-    for (int r = 0; r < TRI_LANE; ++r) {
-      if (r < nr) {
-        const int tt = lane + 32 * r;
-        hacc[r] = Mm[(tri[tt] >> 8) * ld + (tri[tt] & 255)];
-      }
-    }
-    for (int j = 0; j < nact; ++j) {
-      const int c = act[j];
-      const float* co = W + j * NCO;
-      const signed char* pc = spos + c * nv;
-      const int o = soff[c];
-      float ci[5], cii[5];
-      const float c0 = co[CO_C0];
+        for (int r = 0; r < TRI_LANE; ++r) {
+          if (r >= nr) break;
+          const int tt = t0 + lane + 32 * r;
+          const int qu = pc[tri[tt] >> 8], qw = pc[tri[tt] & 255];
+          if ((qu | qw) < 0) continue;
+          const int ou = o + qu, ow = o + qw;
+          const float jnw = Jb[ow];
+          float jtw[5];
+          float P0 = c0 * jnw;
 #pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        ci[i] = co[CO_CI + i];
-        cii[i] = co[CO_CII + i];
+          for (int i = 0; i < 5; ++i) {
+            jtw[i] = Jb[(i + 1) * C + ow];
+            P0 += ci[i] * jtw[i];
+          }
+          float hh = Jb[ou] * P0;
+#pragma unroll
+          for (int i = 0; i < 5; ++i)
+            hh += Jb[(i + 1) * C + ou] * (ci[i] * jnw + cii[i] * jtw[i]);
+          hacc[r] += hh;
+        }
       }
 #pragma unroll
       for (int r = 0; r < TRI_LANE; ++r) {
-        if (r >= nr) break;
-        const int tt = lane + 32 * r;
-        const int qu = pc[tri[tt] >> 8], qw = pc[tri[tt] & 255];
-        if ((qu | qw) < 0) continue;
-        const int ou = o + qu, ow = o + qw;
-        const float jnw = Jb[ow];
-        float jtw[5];
-        float P0 = c0 * jnw;
-#pragma unroll
-        for (int i = 0; i < 5; ++i) {
-          jtw[i] = Jb[(i + 1) * C + ow];
-          P0 += ci[i] * jtw[i];
+        if (r < nr) {
+          const int tt = t0 + lane + 32 * r;
+          H[(tri[tt] >> 8) * ld + (tri[tt] & 255)] = hacc[r];
         }
-        float hh = Jb[ou] * P0;
-#pragma unroll
-        for (int i = 0; i < 5; ++i)
-          hh += Jb[(i + 1) * C + ou] * (ci[i] * jnw + cii[i] * jtw[i]);
-        hacc[r] += hh;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < TRI_LANE; ++r) {
-      if (r < nr) {
-        const int tt = lane + 32 * r;
-        H[(tri[tt] >> 8) * ld + (tri[tt] & 255)] = hacc[r];
       }
     }
     for (int p = 0; p < a.npair; ++p) {
@@ -489,16 +613,35 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
             __ldg(a.pair_coef + p) * Dl[l];
     }
     __syncwarp();
-    warp_chol(H, nv, ld, INV);
-    const float pu = -warp_chol_solve(H, INV, nv, ld, gu);
-    if (lane < nv) P[lane] = pu;
+    chol<R>(H, nv, ld, INV);
+    float pu[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) pu[q] = gu[q];
+    chol_solve<R>(H, INV, nv, ld, pu);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = lane + 32 * q;
+      pu[q] = -pu[q];
+      if (u < nv) P[u] = pu[q];
+    }
     __syncwarp();
 
     // ---- line search on the fixed grid ----
-    float mpu = 0.0f;
-    if (lane < nv)
-      for (int v = 0; v < nv; ++v) mpu += Mm[lane * ld + v] * P[v];
-    const float pMp = warp_sum(pu * mpu), b0 = warp_sum(pu * mxu);
+    float mpu[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = lane + 32 * q;
+      mpu[q] = 0.0f;
+      if (u < nv)
+        for (int v = 0; v < nv; ++v) mpu[q] += Mm[u * ld + v] * P[v];
+    }
+    float pmp = pu[0] * mpu[0], pmx = pu[0] * mxu[0];
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+      pmp += pu[q] * mpu[q];
+      pmx += pu[q] * mxu[q];
+    }
+    const float pMp = warp_sum(pmp), b0 = warp_sum(pmx);
     // lanes over slots: J p per edge, and the slots with an edge that is
     // active somewhere on the grid
     int nls_slots = 0;
@@ -558,7 +701,11 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
     const float last = __shfl_sync(FULL_MASK, dphi, nls - 1);
     const float across = __shfl_sync(FULL_MASK, at, cm ? 31 - __clz(cm) : 0);
     const float alpha = cm ? across : (last < 0.0f ? tmax : 0.0f);
-    if (lane < nv) X[lane] += alpha * P[lane];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int u = lane + 32 * q;
+      if (u < nv) X[u] += alpha * P[u];
+    }
     __syncwarp();
   }
 
@@ -602,22 +749,29 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
     rl[l] = r < 0.0f ? fmaxf(-Dl[l] * r, 0.0f) : 0.0f;
   }
   __syncwarp();
-  float qu = 0.0f;
-  if (lane < nv) {
-    for (int j = 0; j < nload; ++j) {
-      const int c = act[j];
-      const int q = spos[c * nv + lane];
-      if (q < 0) continue;
-      const int o = soff[c] + q;
-      float s = Jb[o] * W[6 * j];
+  float qc[R];
 #pragma unroll
-      for (int i = 0; i < 5; ++i) s += Jb[(i + 1) * C + o] * W[6 * j + 1 + i];
-      qu += s;
+  for (int q = 0; q < R; ++q) {
+    const int u = lane + 32 * q;
+    qc[q] = 0.0f;
+    if (u < nv) {
+      float s_ = 0.0f;
+      for (int j = 0; j < nload; ++j) {
+        const int c = act[j];
+        const int p = spos[c * nv + u];
+        if (p < 0) continue;
+        const int o = soff[c] + p;
+        float s = Jb[o] * W[6 * j];
+#pragma unroll
+        for (int i = 0; i < 5; ++i) s += Jb[(i + 1) * C + o] * W[6 * j + 1 + i];
+        s_ += s;
+      }
+      for (int l = 0; l < nlim; ++l)
+        for (int i = __ldg(lim_ptr + l); i < __ldg(lim_ptr + l + 1); ++i)
+          if (__ldg(lim_dof + i) == u) s_ += __ldg(lim_coef + i) * rl[l];
+      qc[q] = s_;
+      a.qfc[(size_t)u * B + e] = s_;
     }
-    for (int l = 0; l < nlim; ++l)
-      for (int i = __ldg(lim_ptr + l); i < __ldg(lim_ptr + l + 1); ++i)
-        if (__ldg(lim_dof + i) == lane) qu += __ldg(lim_coef + i) * rl[l];
-    a.qfc[(size_t)lane * B + e] = qu;
   }
 
   // ---- implicit-damping Euler: (M + h diag(damping)) dv = h qfrc ----
@@ -626,32 +780,52 @@ __global__ void __launch_bounds__(32 * ENVS_MAX)
     H[u * ld + w] = Mm[u * ld + w] + (u == w ? __ldg(a.hd + u) : 0.0f);
   }
   __syncwarp();
-  warp_chol(H, nv, ld, INV);
-  const float dv =
-      warp_chol_solve(H, INV, nv, ld, lane < nv ? QF[lane] + qu : 0.0f);
-  if (lane < nv) {
-    const float h = __ldg(a.dt);
-    a.qacc[(size_t)lane * B + e] = X[lane];
-    a.qvn[(size_t)lane * B + e] = QV[lane] + h * dv;
+  chol<R>(H, nv, ld, INV);
+  float dv[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int u = lane + 32 * q;
+    dv[q] = u < nv ? QF[u] + qc[q] : 0.0f;
+  }
+  chol_solve<R>(H, INV, nv, ld, dv);
+  const float h = __ldg(a.dt);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int u = lane + 32 * q;
+    if (u < nv) {
+      a.qacc[(size_t)u * B + e] = X[u];
+      a.qvn[(size_t)u * B + e] = QV[u] + h * dv[q];
+    }
   }
 }
 
-int check_shape(int nv, int K, int nlim, int C, int nls, int envs,
+const void* kernel_for(int nv, int pe) {
+  if (nv <= 32)
+    return pe ? (const void*)solve_kernel<1, true>
+              : (const void*)solve_kernel<1, false>;
+  return pe ? (const void*)solve_kernel<2, true>
+            : (const void*)solve_kernel<2, false>;
+}
+
+int check_shape(int nv, int K, int nlim, int C, int nls, int envs, int pe,
                 int smem) {
   if (nls < 2 || nls > LS_MAX || nv < 1 || nv > NV_MAX || envs < 1 ||
-      envs > ENVS_MAX || K < 0 || nlim < 0 || C < 0)
+      envs > ENVS_MAX || K < 0 || nlim < 0 || C < 0 || (pe && C > K * nv))
     return (int)cudaErrorInvalidValue;
-  const Layout lay = make_layout(nv, K, nlim, C);
+  const Layout lay = make_layout(nv, K, nlim, C, pe != 0);
   if (smem != lay.table_bytes + 4 * envs * lay.env)
     return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(
-      solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel_for(nv, pe), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
 
 // smem: dynamic shared memory of one block, fused_solver.
-// solver_smem_bytes(nv, K, nlim, C, envs); checked against make_layout.
+// solver_smem_bytes(nv, K, nlim, C, envs, per_env); checked against
+// make_layout. per_env: dmask is the (K, nv) x B per-env mask and C the
+// bound on one env's chain entries; else slot_ptr / slot_dof / slot_sgn
+// are the static mask compressed, C its entries.
 extern "C" int hm_solve(const float* M, const float* qf, const float* qv,
                         const float* cdof, const float* rel, const float* nrm,
                         const float* dist, const float* mu3, const float* kc,
@@ -659,26 +833,37 @@ extern "C" int hm_solve(const float* M, const float* qf, const float* qv,
                         const float* kl, const float* bl, const float* dl,
                         const float* hd, const float* dt, const int* slot_ptr,
                         const int* slot_dof, const float* slot_sgn,
-                        const int* lim_ptr, const int* lim_dof,
-                        const int* lim_row, const float* lim_coef,
-                        const int* pair_tri, const int* pair_row,
-                        const float* pair_coef, const float* grid,
-                        float* qacc, float* qvn, float* fslot, float* qfc,
-                        int B, int nv, int K, int nlim, int C, int npair,
-                        int niter, int nls, int envs, int smem,
-                        void* stream) {
-  const int err = check_shape(nv, K, nlim, C, nls, envs, smem);
+                        const float* dmask, const int* lim_ptr,
+                        const int* lim_dof, const int* lim_row,
+                        const float* lim_coef, const int* pair_tri,
+                        const int* pair_row, const float* pair_coef,
+                        const float* grid, float* qacc, float* qvn,
+                        float* fslot, float* qfc, int B, int nv, int K,
+                        int nlim, int C, int npair, int niter, int nls,
+                        int envs, int per_env, int smem, void* stream) {
+  const int err = check_shape(nv, K, nlim, C, nls, envs, per_env, smem);
   if (err != 0) return err;
   if (B <= 0) return 0;
-  SolveArgs a{M,        qf,       qv,        cdof,      rel,      nrm,
-              dist,     mu3,      kc,        bc,        dc,       lpos,
-              kl,       bl,       dl,        hd,        dt,       slot_ptr,
-              slot_dof, slot_sgn, lim_ptr,   lim_dof,   lim_row,  lim_coef,
-              pair_tri, pair_row, pair_coef, grid,      qacc,     qvn,
-              fslot,    qfc,      B,         nv,        K,        nlim,
-              C,        npair,    niter,     nls,       envs};
+  SolveArgs a{M,        qf,       qv,       cdof,     rel,       nrm,
+              dist,     mu3,      kc,       bc,       dc,        lpos,
+              kl,       bl,       dl,       hd,       dt,        slot_ptr,
+              slot_dof, slot_sgn, dmask,    lim_ptr,  lim_dof,   lim_row,
+              lim_coef, pair_tri, pair_row, pair_coef, grid,     qacc,
+              qvn,      fslot,    qfc,      B,        nv,        K,
+              nlim,     C,        npair,    niter,    nls,       envs};
   const int blocks = (B + envs - 1) / envs;
-  solve_kernel<<<blocks, 32 * envs, smem, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nv <= 32) {
+    if (per_env)
+      solve_kernel<1, true><<<blocks, 32 * envs, smem, s>>>(a);
+    else
+      solve_kernel<1, false><<<blocks, 32 * envs, smem, s>>>(a);
+  } else {
+    if (per_env)
+      solve_kernel<2, true><<<blocks, 32 * envs, smem, s>>>(a);
+    else
+      solve_kernel<2, false><<<blocks, 32 * envs, smem, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -686,14 +871,14 @@ extern "C" int hm_solve(const float* M, const float* qf, const float* qv,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers per
 // thread, out[2] local (spill) bytes per thread.
 extern "C" int hm_solve_occupancy(int nv, int K, int nlim, int C, int envs,
-                                  int smem, int* out) {
-  int err = check_shape(nv, K, nlim, C, LS_MAX, envs, smem);
+                                  int per_env, int smem, int* out) {
+  int err = check_shape(nv, K, nlim, C, LS_MAX, envs, per_env, smem);
   if (err != 0) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], solve_kernel, 32 * envs, smem);
+      &out[0], kernel_for(nv, per_env), 32 * envs, smem);
   if (err != 0) return err;
   cudaFuncAttributes fa;
-  err = (int)cudaFuncGetAttributes(&fa, solve_kernel);
+  err = (int)cudaFuncGetAttributes(&fa, kernel_for(nv, per_env));
   out[1] = fa.numRegs;
   out[2] = (int)fa.localSizeBytes;
   return err;

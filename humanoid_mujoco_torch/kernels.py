@@ -28,8 +28,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "smooth": ("hm_smooth", [_P] * 4 + [_P] * 9 + [_P] + [_P] * 12 + [_P]
                + [_I] * 3 + [_P]),
-    "solver": ("hm_solve", [_P] * 17 + [_P] * 3 + [_P] * 8 + [_P] * 4
-               + [_I] * 10 + [_P]),
+    "solver": ("hm_solve", [_P] * 17 + [_P] * 4 + [_P] * 8 + [_P] * 4
+               + [_I] * 11 + [_P]),
     "euler": ("hm_solve_euler", [_P] * 11 + [_P] * 4 + [_P] + [_I] * 7
               + [_P]),
 }

@@ -37,11 +37,13 @@ LS_MAX = 16          # line-search grid capacity of the kernel
 
 def solve_step_raw_reference(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
                              kc, bc, dc, lpos, kl, bl, dl, hdamp, dt,
-                             lim_tab=(), niter: int = 8, ls_iter: int = 16):
+                             lim_tab=(), niter: int = 8, ls_iter: int = 16,
+                             chain_max=None):
     """Plain PyTorch twin of kernel B2 (counterpart of
     pallas_solver._jax_single_raw): rows_from_raw, then the B3 twin
-    (finish_efc + newton_solve + Euler). Returns (qacc, qvel_new, fslot,
-    qfrc_c)."""
+    (finish_efc + newton_solve + Euler). dmask static (K, nv) or per env
+    (B, K, nv); `chain_max`, the kernel's chain-area size, plays no part
+    here. Returns (qacc, qvel_new, fslot, qfrc_c)."""
     B, nv = qf.shape
     K, nlim = dist.shape[1], lpos.shape[1]
     rows = rows_from_raw(cdof, dmask, rel, nrm, dist, mu3, kc, bc, dc,
@@ -94,7 +96,7 @@ def _grid(ls_iter, device):
 
 SMEM_MAX = 232_448    # dynamic shared memory one block may use (H100)
 ENVS_PER_BLOCK = 4    # B2, B3: one warp per env, at most this many a block
-NV_MAX = 32           # kernel B2: one lane per dof in its warp solves
+NV_MAX = 64           # kernel B2: two matrix rows per lane above 32 dofs
 _CHAINS = WeakIdKeyDictionary()
 
 
@@ -130,50 +132,85 @@ def _round_up(x: int, m: int) -> int:
 
 
 def solver_smem_bytes(nv: int, K: int, nlim: int, chain: int,
-                      envs: int = 1) -> int:
+                      envs: int = 1, per_env: bool = False) -> int:
     """Dynamic shared memory of one block of kernel B2 with `envs` warps
-    (csrc/solver.cu make_layout): the block's tables (slot offsets,
-    compressed dofs, (slot, dof) positions, lower-triangle pairs), then
-    per env M and H (row stride nv | 1), the six base rows over the
-    `chain` compressed chain dofs, D, aref and r of the 10 K pyramid
-    edges, friction, a work area, the limit rows' D, aref and r, six
-    nv-vectors and the active-slot list, all float32 / int32."""
+    (csrc/solver.cu make_layout): the block's tables (with a static
+    mask: slot offsets, compressed dofs, (slot, dof) positions; always
+    the lower-triangle pairs), then per env M and H (row stride nv | 1),
+    the six base rows over the `chain` compressed chain dofs, D, aref
+    and r of the 10 K pyramid edges, friction, a work area, the limit
+    rows' D, aref and r, six nv-vectors and the active-slot list, all
+    float32 / int32; with a per-env mask also the env's own chain
+    tables (signs, slot offsets, dofs and positions as bytes), `chain`
+    entries long."""
     ld = nv | 1
-    tables = _round_up(_round_up(4 * (K + 1) + chain + K * nv, 2)
-                       + nv * (nv + 1), 16)
+    static = 0 if per_env else 4 * (K + 1) + chain + K * nv
+    tables = _round_up(_round_up(static, 2) + nv * (nv + 1), 16)
     work = max(17 * K, 10 * K + nlim, nv * ld, 6 * nv)
     env = (2 * nv * ld + 6 * chain + 33 * K + work + 3 * nlim + 6 * nv
            + K)
+    if per_env:
+        env += chain + K + 1 + -(-chain // 4) + -(-K * nv // 4)
     return tables + 4 * envs * _round_up(env, 4)
 
 
-def solver_block_shape(nv: int, K: int, nlim: int, chain: int):
+def solver_block_shape(nv: int, K: int, nlim: int, chain: int,
+                       per_env: bool = False):
     """(envs per block, shared bytes per block) of kernel B2, or a
-    ValueError when one env's working set does not fit a block."""
+    ValueError when nv exceeds the kernel's cap or one env's working
+    set does not fit a block."""
     if nv > NV_MAX:
         raise ValueError(f"kernel B2 takes at most {NV_MAX} dofs, got {nv}")
-    one = solver_smem_bytes(nv, K, nlim, chain)
+    one = solver_smem_bytes(nv, K, nlim, chain, 1, per_env)
     if one > SMEM_MAX:
         raise ValueError(f"kernel B2 needs {one} bytes of shared memory for "
                          f"one env (nv {nv}, {K} slots, {nlim} limit rows, "
                          f"{chain} chain dofs); a block has {SMEM_MAX}")
     envs = ENVS_PER_BLOCK
-    while solver_smem_bytes(nv, K, nlim, chain, envs) > SMEM_MAX:
+    while solver_smem_bytes(nv, K, nlim, chain, envs, per_env) > SMEM_MAX:
         envs -= 1
-    return envs, solver_smem_bytes(nv, K, nlim, chain, envs)
+    return envs, solver_smem_bytes(nv, K, nlim, chain, envs, per_env)
+
+
+def chain_bound(dmask: torch.Tensor, k: int) -> int:
+    """The most chain entries any k slots of the static mask (K, nv)
+    hold: the sum of its k longest slot chains (read on the host once
+    per mask, `chain_layout`). Kernel B2 sizes a per-env mask's chain
+    area by it."""
+    ptr = chain_layout(dmask)[0]
+    return int(np.sort(np.diff(ptr))[::-1][:k].sum())
+
+
+@functools.lru_cache(maxsize=None)
+def _no_chain(device):
+    """Placeholders for the static-mask pointers of a per-env launch."""
+    return (torch.zeros(1, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device),
+            torch.zeros(1, dtype=torch.float32, device=device))
 
 
 def _solver_launch_args(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
                         kc, bc, dc, lpos, kl, bl, dl, hdamp, dt, lim_tab,
-                        niter, ls_iter):
+                        niter, ls_iter, chain_max=None):
     """Kernel B2's C arguments for checked inputs: (pointer tensors,
-    ints, outputs (qacc, qvn, fslot, qfc) batch-last). Raises ValueError
-    before any launch when the model does not fit the kernel."""
+    ints, outputs (qacc, qvn, fslot, qfc) batch-last). A static mask
+    (K, nv) goes compressed (`chain_layout`); a per-env mask (B, K, nv)
+    dense and batch-last, its chain area `chain_max` entries an env
+    (K nv if None). Raises ValueError before any launch when the model
+    does not fit the kernel."""
     B, nv = qf.shape
     K, nlim = dist.shape[1], lpos.shape[1]
     dev = M.device
-    _, dof, _, *chain = chain_layout(dmask)
-    envs, smem = solver_block_shape(nv, K, nlim, len(dof))
+    per_env = dmask.ndim == 3
+    if per_env:
+        chain = _no_chain(dev)
+        ndof = K * nv if chain_max is None else int(chain_max)
+        if not 0 <= ndof <= K * nv:
+            raise ValueError(f"chain_max must be in [0, {K * nv}]")
+    else:
+        _, dof, _, *chain = chain_layout(dmask)
+        ndof = len(dof)
+    envs, smem = solver_block_shape(nv, K, nlim, ndof, per_env)
 
     def lanes(x):
         """(B, a, b) -> (b, a, B) for the contact arrays, (B, ...) ->
@@ -194,46 +231,58 @@ def _solver_launch_args(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
     dtt = torch.as_tensor(dt, dtype=f32, device=dev).reshape(1)
     outs = tuple(torch.empty((n, B), dtype=f32, device=dev)
                  for n in (nv, nv, K, nv))
+    dm = rows_last(dmask) if per_env else chain[2]
     ins = (rows_last(M), qf.t().contiguous(), qv.t().contiguous(),
            rows_last(cdof), lanes(rel), lanes(nrm), dist.t().contiguous(),
            lanes(mu3), *(x.t().contiguous() for x in (kc, bc, dc)), *limt,
            hd.contiguous(), dtt,
-           *chain, *lim[:7], _grid(ls_iter, dev))
-    ints = (B, nv, K, nlim, len(dof), lim[7], niter, ls_iter, envs, smem)
+           *chain, dm, *lim[:7], _grid(ls_iter, dev))
+    ints = (B, nv, K, nlim, ndof, lim[7], niter, ls_iter, envs,
+            int(per_env), smem)
     return ins, ints, outs
 
 
-def solver_occupancy(nv: int, K: int, nlim: int, chain: int):
+def solver_occupancy(nv: int, K: int, nlim: int, chain: int,
+                     per_env: bool = False):
     """Kernel B2's occupancy on the current card at the block shape the
     wrapper launches: envs per block, shared bytes per env and per
-    block, blocks per SM, registers and local (spill) bytes per thread."""
+    block, blocks per SM, registers and local (spill) bytes per thread
+    of the instantiation it takes (R = 1 or 2, static or per-env
+    mask)."""
     import ctypes
     from .. import kernels
-    envs, smem = solver_block_shape(nv, K, nlim, chain)
+    envs, smem = solver_block_shape(nv, K, nlim, chain, per_env)
     fn = kernels.load("solver").hm_solve_occupancy
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     out = (ctypes.c_int * 3)()
-    err = fn(nv, K, nlim, chain, envs, smem, ctypes.cast(out, ctypes.c_void_p))
+    err = fn(nv, K, nlim, chain, envs, int(per_env), smem,
+             ctypes.cast(out, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f"hm_solve_occupancy failed: cudaError {err}")
     return {"envs_per_block": envs,
-            "smem_per_env": solver_smem_bytes(nv, K, nlim, chain, 1)
-            - solver_smem_bytes(nv, K, nlim, chain, 0),
+            "smem_per_env": solver_smem_bytes(nv, K, nlim, chain, 1, per_env)
+            - solver_smem_bytes(nv, K, nlim, chain, 0, per_env),
             "smem_per_block": smem, "blocks_per_sm": out[0],
             "registers": out[1], "local_bytes": out[2]}
 
 
 def solve_step_raw(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
                    kc, bc, dc, lpos, kl, bl, dl, hdamp, dt,
-                   lim_tab=(), niter: int = 8, ls_iter: int = 16):
+                   lim_tab=(), niter: int = 8, ls_iter: int = 16,
+                   chain_max=None):
     """Row-building contact solve + implicit-damping Euler from raw data.
 
     Batch-leading inputs: M (B, nv, nv), qf/qv (B, nv), cdof (B, nv, 6),
-    rel/nrm/mu3 (B, K, 3), dist/kc/bc/dc (B, K), dmask (K, nv) static,
-    lpos/kl/bl/dl (B, nlim), hdamp (nv,) and dt () shared by the batch;
-    lim_tab the static (nlim, nv) limit Jacobian (solver.
-    limit_rows_static). Returns (qacc, qvel_new, fslot, qfrc_constraint)
-    with fslot (B, K) the per-slot summed normal force.
+    rel/nrm/mu3 (B, K, 3), dist/kc/bc/dc (B, K), dmask (K, nv) static
+    or (B, K, nv) per env (the selected slots' masks after a top-k
+    selection), lpos/kl/bl/dl (B, nlim), hdamp (nv,) and dt () shared by
+    the batch; lim_tab the static (nlim, nv) limit Jacobian (solver.
+    limit_rows_static). With a per-env mask, `chain_max` bounds the
+    nonzero entries of one env's mask (`chain_bound` of the model's
+    static mask; K nv if None): the kernel sizes its chain area by it
+    and flags an env over it as diverged (NaN qacc). Returns (qacc,
+    qvel_new, fslot, qfrc_constraint) with fslot (B, K) the per-slot
+    summed normal force.
     """
     global LAUNCHES
     if M.device.type == "cpu":
@@ -247,8 +296,9 @@ def solve_step_raw(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
     args = (M, qf, qv, cdof, rel, nrm, dist, mu3, dmask, kc, bc, dc,
             lpos, kl, bl, dl)
     shapes = ((B, nv, nv), (B, nv), (B, nv), (B, nv, 6), (B, K, 3),
-              (B, K, 3), (B, K), (B, K, 3), (K, nv), (B, K), (B, K), (B, K),
-              (B, nlim), (B, nlim), (B, nlim), (B, nlim))
+              (B, K, 3), (B, K), (B, K, 3),
+              (B, K, nv) if dmask.ndim == 3 else (K, nv), (B, K), (B, K),
+              (B, K), (B, nlim), (B, nlim), (B, nlim), (B, nlim))
     for t, shape in zip(args, shapes):
         if t.device != dev:
             raise ValueError("all kernel inputs must be on one CUDA device")
@@ -264,7 +314,7 @@ def solve_step_raw(M, qf, qv, cdof, rel, nrm, dist, mu3, dmask,
         raise ValueError("lim_tab must be (nlim, nv) for this limit data")
     ins, ints, outs = _solver_launch_args(
         M, qf, qv, cdof, rel, nrm, dist, mu3, dmask, kc, bc, dc, lpos, kl,
-        bl, dl, hdamp, dt, lim_tab, niter, ls_iter)
+        bl, dl, hdamp, dt, lim_tab, niter, ls_iter, chain_max)
     kernels.launch("solver", *(t.data_ptr() for t in ins + outs), *ints)
     LAUNCHES += 1
     return tuple(x.t() for x in outs)

@@ -153,17 +153,22 @@ def contact_dmask(m: Model) -> torch.Tensor:
     return m.struct_static(("contact_dmask", m.dtype, m.device), build)
 
 
-def contact_raw(m: Model, kin: Kin, contacts: Contacts):
-    """(dmask, rel, mu3, kcon, bcon, dcon) over the full slot set:
-    dmask (K, nv), rel (B, K, 3) contact point minus anchor, mu3
-    (B, K, 3) [slide, torsion, roll], k/b/d (B, K)."""
+def contact_raw(m: Model, kin: Kin, contacts: Contacts, sel=None):
+    """(dmask, rel, mu3, kcon, bcon, dcon) of `contacts`: rel (B, K, 3)
+    contact point minus anchor, mu3 (B, K, 3) [slide, torsion, roll],
+    k/b/d (B, K). Over the full slot set (sel None) dmask is the static
+    (K, nv) mask; after a top-k selection (collision.select_contacts)
+    with `sel` (B, k), the per-env mask contact_dmask(m)[sel] (B, k, nv),
+    as JAX solver.py:322-323."""
     rel = contacts.pos - kin.anchor[:, None]
     mu3 = torch.stack([contacts.friction, contacts.friction_tor,
                        contacts.friction_roll], dim=-1)
     dcon = impedance(m.solimp, -contacts.dist)
     kcon, bcon = _kb(m.solref, m.solimp, dcon, m.dt)
-    return (contact_dmask(m).to(rel.dtype), rel, mu3, kcon,
-            bcon.expand(dcon.shape), dcon)
+    dmask = contact_dmask(m).to(rel.dtype)
+    if sel is not None:
+        dmask = dmask[sel]
+    return dmask, rel, mu3, kcon, bcon.expand(dcon.shape), dcon
 
 
 def rows_from_raw(cdof, dmask, rel, normal, dist, mu3, kcon, bcon, dcon,
@@ -211,9 +216,7 @@ def make_contact_rows(m: Model, kin: Kin, qpos: torch.Tensor,
     gathers the static per-slot dof masks. Rows are edge-major, as
     `rows_from_raw` builds them; the JAX make_rows orders them contact-
     major, which changes no solve (every consumer reduces over rows)."""
-    dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts)
-    if sel is not None:
-        dmask = dmask[sel]                                   # (B, k, nv)
+    dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts, sel)
     lim_tab = m.struct_static("lim_tab", lambda: limit_rows_static(m))
     lpos, kl, bl, dl = limit_rows_data(m, qpos)
     return rows_from_raw(kin.cdof, dmask, rel, contacts.normal,

@@ -12,12 +12,19 @@ with its four routes (`route`):
   Hill, whose 64 x 64 heightfield is over B1's 1024-cell gate; every
   model with capsules, boxes, fixed tendons, gravcomp or site actuators:
   the upstream humanoid, OP3, Panda, PickAndPlace, FreeFingers, the
-  Quadrotor, the bimanual Handover): the plain smooth stage
+  Quadrotor, the bimanual Handover, Insert and Reorient, Allegro,
+  Shadow, Humanoid Interact, Rubik): the plain smooth stage
   `engine.prepare_smooth`, `collide`, the raw contact and limit data
   (solver.contact_raw, limit_rows_data), then kernel B2, as JAX
-  step.py:288-316 does; selection-free when nv·(nlim + 10 ncon) <= 16384,
+  step.py:288-319 does. Selection-free when nv·(nlim + 10 ncon) <= 16384,
   as there, also where the model keeps a top-k cap (`max_contacts`) in
-  `forward` (larger models need B2's per-env dmask and raise);
+  `forward`: B2 takes the static (ncon, nv) mask. Above that gate (the
+  hands, Insert, Reorient, Interact, Rubik) the step keeps the top-k
+  selection (`select_contacts`, a stable sort of the gaps): B2 solves
+  the k selected slots with their per-env mask (B, k, nv), its chain
+  area sized by the model's k longest slot chains, and the per-slot
+  forces scatter back to the full slot layout; `contact_dist` stays the
+  full slot set;
 - "rows", models with no contact slots and at least one constraint row
   (the Swimmer, Cartpole): the plain smooth stage, the joint-limit rows
   (solver.make_rows), then the explicit-row solve + Euler (kernel B3,
@@ -179,31 +186,30 @@ _SELECTION_FREE_MAX = 16384   # nv·ne of JAX step's selection-free gate
 def route(m: Model) -> str:
     """The route `step` takes for this model: "smooth" (B1 + B2),
     "contact" (plain smooth stage + B2), "rows" (plain smooth stage +
-    B3) or "free" (no kernel); see the module docstring. Raises
-    NotImplementedError for a model the port cannot step yet."""
+    B3) or "free" (no kernel); see the module docstring."""
     return m.struct_static("step_route", lambda: _route(m))
 
 
 def _route(m: Model) -> str:
-    s = m.struct
     if fused_smooth.supported(m):
         return "smooth"
     nlim = len(m.struct_static("lim_tab", lambda: limit_rows_static(m)))
     if m.ncon:
-        if s.nv > fused_solver.NV_MAX:
-            raise NotImplementedError(
-                f"this contact model has nv {s.nv}; kernel B2 takes at "
-                f"most {fused_solver.NV_MAX} dofs (the nv > 32 and per-env "
-                "dmask slice of the port, ROADMAP item 9e)")
-        if (0 < s.max_contacts < m.ncon
-                and s.nv * (nlim + 10 * m.ncon) > _SELECTION_FREE_MAX):
-            raise NotImplementedError(
-                "this contact model keeps its top-k contact selection in "
-                "the JAX step, which needs kernel B2's per-env dmask (the "
-                "per-env dmask slice of the port, ROADMAP item 9e and "
-                "queue 2)")
         return "contact"
     return "rows" if nlim else "free"
+
+
+def keeps_selection(m: Model) -> bool:
+    """Whether the step's "contact" route keeps the top-k contact
+    selection, as the JAX step does (step.py:303-305): a cap 0 <
+    max_contacts < ncon and nv·(nlim + 10 ncon) over 16384."""
+    def build():
+        s = m.struct
+        nlim = len(m.struct_static("lim_tab",
+                                   lambda: limit_rows_static(m)))
+        return bool(0 < s.max_contacts < m.ncon
+                    and s.nv * (nlim + 10 * m.ncon) > _SELECTION_FREE_MAX)
+    return m.struct_static("keeps_selection", build)
 
 
 def step(m: Model, state: State, ctrl: torch.Tensor,
@@ -221,6 +227,7 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
     forward-mode tangents run through the plain twin.
     """
     h = m.dt
+    s = m.struct
     qpos, qvel = state.qpos, state.qvel
     if qpos.dtype != m.dtype or qpos.device != m.device:
         raise ValueError(f"state ({qpos.dtype}, {qpos.device}) does not "
@@ -252,17 +259,27 @@ def step(m: Model, state: State, ctrl: torch.Tensor,
         hdamp = h * m.dof_damping
         dist = cf = qpos.new_zeros((qpos.shape[0], 0))
         if way == "contact":
-            contacts = collide(m, kin.xpos, kin.xmat)
-            dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts)
+            full = collide(m, kin.xpos, kin.xmat)
+            contacts, sel, chain_max = full, None, None
+            if keeps_selection(m):
+                k = s.max_contacts
+                contacts, sel = select_contacts(full, k)
+                chain_max = m.struct_static(
+                    ("topk_chain", k), lambda: fused_solver.chain_bound(
+                        contact_dmask(m), k))
+            dmask, rel, mu3, kc, bc, dc = contact_raw(m, kin, contacts, sel)
             lpos, kl, bl, dl = limit_rows_data(m, qpos)
             lim_tab = m.struct_static("lim_tab",
                                       lambda: limit_rows_static(m))
-            dist = contacts.dist
+            dist = full.dist
             qacc, qvel_new, cf, qfrc_constraint = \
                 fused_solver.solve_step_raw(
                     M, qfrc_smooth, qvel, kin.cdof, rel, contacts.normal,
-                    dist, mu3, dmask, kc, bc, dc, lpos, kl, bl,
-                    dl, hdamp, h, lim_tab=lim_tab, niter=solver_iters)
+                    contacts.dist, mu3, dmask, kc, bc, dc, lpos, kl, bl,
+                    dl, hdamp, h, lim_tab=lim_tab, niter=solver_iters,
+                    chain_max=chain_max)
+            if sel is not None:
+                cf = cf.new_zeros(dist.shape).scatter(1, sel, cf)
         elif way == "rows":
             rows = make_rows(m, qpos)
             qacc, qvel_new, _, qfrc_constraint = \

@@ -15,9 +15,9 @@ gripper a palm capsule.
   "contact" route selection-free over all 62 slots, as the JAX step's
   kernel branch does.
 - Reorient (the reorientation cross of three capsules) and Insert (two
-  connector boxes) keep their top-16 selection in the JAX step
-  (nv·ne 23,584 and 26,656): `step` raises until kernel B2 takes a
-  per-env dmask.
+  connector boxes) keep their top-16 selection in the step, as in the
+  JAX step (nv·ne 23,584 and 26,656): kernel B2 solves the 16 smallest
+  gaps with their per-env chain mask.
 
 Handover residual: Reach L / R (3 each) the cube in each gripper-site
 frame, y and z doubled [L2(0.01), w 0.1]; Grasp (1) the geometric mean

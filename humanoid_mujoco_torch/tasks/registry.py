@@ -1,18 +1,18 @@
 """Task registry (the reference's tasks.cc GetTasks).
 
-Counterpart of humanoid_mujoco_tpu/tasks/registry.py, holding the tasks
-ported so far, under the JAX package's names: the sphere-and-joint tier
-("Acrobot", "Cartpole", "Humanoid Cap Stand", "Humanoid Cap Walk",
-"Particle", "ParticleFixed", "Quadruped Flat", "Quadruped Hill",
-"Swimmer", "Walker") and the contact-rich tier the step runs selection-
-free ("Bimanual Handover", "FreeFingers", "Humanoid Stand", "Humanoid
-Track", "Humanoid Walk", "OP3", "Panda", "PickAndPlace", "Quadrotor").
-The tasks that need kernel B2's per-env dmask (Allegro, Shadow,
-Bimanual Insert and Reorient, Humanoid Interact) and Rubik (nv 36) come
-later; tasks/aloha.py already holds the Insert and Reorient models,
-whose step raises. Each name selects a task factory, the factory of the
-model it plans on and, optionally, its home keyframe. Factories take
-the `dtype` and `device` keywords.
+Counterpart of humanoid_mujoco_tpu/tasks/registry.py, with all 24 of
+its tasks under their names: the sphere-and-joint tier ("Acrobot",
+"Cartpole", "Humanoid Cap Stand", "Humanoid Cap Walk", "Particle",
+"ParticleFixed", "Quadruped Flat", "Quadruped Hill", "Swimmer",
+"Walker"), the contact-rich tier the step runs selection-free
+("Bimanual Handover", "FreeFingers", "Humanoid Stand", "Humanoid
+Track", "Humanoid Walk", "OP3", "Panda", "PickAndPlace", "Quadrotor")
+and the top-k tier, whose step keeps its contact selection and hands
+kernel B2 a per-env chain mask ("Allegro", "Bimanual Insert", "Bimanual
+Reorient", "Humanoid Interact", "Rubik" at nv 36, "Shadow"). Each name
+selects a task factory, the factory of the model it plans on and,
+optionally, its home keyframe. Factories take the `dtype` and `device`
+keywords.
 """
 
 from __future__ import annotations
@@ -68,12 +68,18 @@ def _register_builtin():
     from ..physics import humanoid_upstream
     from ..physics.humanoid import build_humanoid, stand_qpos
     from .acrobot import acrobot_home_qpos, acrobot_model, acrobot_task
-    from .aloha import aloha_home_qpos, aloha_model, handover_task
+    from .aloha import (aloha_home_qpos, aloha_insert_model, aloha_model,
+                        aloha_reorient_model, handover_task,
+                        insert_home_qpos, insert_task, reorient_home_qpos,
+                        reorient_task)
     from .cartpole import cartpole_home_qpos, cartpole_model, cartpole_task
     from .fingers import fingers_home_qpos, fingers_model, fingers_task
+    from .hands import (allegro_home_qpos, allegro_model, allegro_task,
+                        shadow_home_qpos, shadow_model, shadow_task)
     from .humanoid21 import h21_stand_task, h21_walk_task, humanoid21_model
     from .humanoid_track import start_state as track_start
     from .humanoid_track import track_model, track_task
+    from .interact import interact_home_qpos, interact_model, interact_task
     from .op3 import op3_home_qpos, op3_model, op3_task
     from .panda import panda_home_qpos, panda_model, panda_task
     from .particle import particle_fixed_task, particle_model, particle_task
@@ -84,13 +90,19 @@ def _register_builtin():
     from .quadruped import (quadruped_home_qpos, quadruped_model,
                             quadruped_task)
     from .quadruped_hill import quadruped_hill_model, quadruped_hill_task
+    from .rubik import rubik_home_qpos, rubik_model, rubik_task
     from .stand import stand_task
     from .swimmer import swimmer_model, swimmer_task
     from .walk import walk_task
     from .walker2d import walker_model, walker_stand_qpos, walker_task
     register("Acrobot", acrobot_task, acrobot_model, acrobot_home_qpos)
+    register("Allegro", allegro_task, allegro_model, allegro_home_qpos)
     register("Bimanual Handover", handover_task, aloha_model,
              aloha_home_qpos)
+    register("Bimanual Insert", insert_task, aloha_insert_model,
+             insert_home_qpos)
+    register("Bimanual Reorient", reorient_task, aloha_reorient_model,
+             reorient_home_qpos)
     register("Cartpole", cartpole_task, cartpole_model,
              cartpole_home_qpos)
     register("FreeFingers", fingers_task, fingers_model,
@@ -103,6 +115,8 @@ def _register_builtin():
              humanoid_upstream.stand_qpos)
     register("Humanoid Track", track_task, track_model,
              lambda m: track_start(m, 0).qpos[0])
+    register("Humanoid Interact", interact_task, interact_model,
+             interact_home_qpos)
     register("OP3", op3_task, op3_model, op3_home_qpos)
     register("Panda", panda_task, panda_model, panda_home_qpos)
     register("Particle", particle_task, particle_model)
@@ -115,6 +129,8 @@ def _register_builtin():
              quadruped_home_qpos)
     register("Quadruped Hill", quadruped_hill_task, quadruped_hill_model,
              quadruped_home_qpos)
+    register("Rubik", rubik_task, rubik_model, rubik_home_qpos)
+    register("Shadow", shadow_task, shadow_model, shadow_home_qpos)
     register("Swimmer", swimmer_task, swimmer_model)
     register("Walker", walker_task, walker_model, walker_stand_qpos)
 

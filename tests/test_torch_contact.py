@@ -48,9 +48,10 @@ through both packages; tolerances are max-abs error over max-abs value:
   divergence witness of bench.py's Handover cell: six of its candidates
   (one solver iteration) rolled 40 steps, each diverging at the same
   step in the port as in the JAX kernel branch (`check_witness`);
-- `route`: "contact" for the eight models; Insert, Reorient, Allegro,
-  Shadow and Humanoid Interact raise for the per-env dmask slice and
-  Rubik for nv > 32.
+- `route`: "contact" for the eight models, selection-free; and for
+  Insert, Reorient, Allegro, Shadow, Humanoid Interact and Rubik, whose
+  step keeps its top-k selection (held to JAX in
+  tests/test_torch_topk.py), built here from the JAX leaves.
 
 The JAX references (jit compiles of the steps, the derivatives and the
 plan) are built in processes of their own by tests/test_torch_port.py;
@@ -99,8 +100,8 @@ from humanoid_mujoco_torch.physics.solver import (contact_raw, finish_efc,
                                                   limit_rows_static,
                                                   newton_solve,
                                                   rows_from_raw)
-from humanoid_mujoco_torch.physics.step import (forward, route, step,
-                                                step_rk4)
+from humanoid_mujoco_torch.physics.step import (forward, keeps_selection,
+                                                route, step, step_rk4)
 from humanoid_mujoco_torch.planners import derivatives as tder
 from humanoid_mujoco_torch.planners import (SamplingConfig, init_policy,
                                             sampling_plan)
@@ -136,10 +137,9 @@ MODELS = ("Humanoid Stand", "Humanoid Track", "OP3", "Panda",
           "PickAndPlace", "FreeFingers", "Quadrotor", "Bimanual Handover")
 PLAIN = ("Panda", "PickAndPlace", "FreeFingers", "Quadrotor")
 TOPK = ("Humanoid Stand", "Humanoid Track", "OP3", "Bimanual Handover")
-LATER = {"Bimanual Insert": "per-env dmask",
-         "Bimanual Reorient": "per-env dmask", "Allegro": "per-env dmask",
-         "Shadow": "per-env dmask", "Humanoid Interact": "per-env dmask",
-         "Rubik": "nv 36"}
+# the top-k tier: their step keeps its contact selection
+SELECTING = ("Bimanual Insert", "Bimanual Reorient", "Allegro", "Shadow",
+             "Humanoid Interact", "Rubik")
 # RK4 on gravcomp, a box and site thrust; its JAX compile is four
 # steps' (Panda's 10-deep chain ~2 min, FreeFingers ~50 s, the
 # Quadrotor ~15 s)
@@ -650,27 +650,20 @@ def check_models_and_tasks():
 
 def check_routes():
     for name in MODELS:
-        assert route(port_model(name)) == "contact", name
-    for name, why in LATER.items():
+        m = port_model(name)
+        assert route(m) == "contact" and not keeps_selection(m), name
+    for name in SELECTING:
         jm = jregistry.task_model(name, dtype=jnp.float64)
         leaves = {k: np.asarray(getattr(jm, k)) for k in _LEAVES}
         m = model_from_jax_leaves(Structure(**dataclasses.asdict(jm.struct)),
                                   leaves, device="cpu")
-        try:
-            route(m)
-        except NotImplementedError as e:
-            assert why in str(e), (name, str(e))
-        else:
-            raise AssertionError(f"{name}: route should refuse")
+        assert route(m) == "contact" and keeps_selection(m), name
     for model in (taloha.aloha_insert_model, taloha.aloha_reorient_model):
         m = model(dtype=F64, device="cpu")
-        try:
-            step(m, tmodel.make_state(m, batch=2), torch.zeros(
-                (2, m.nu), dtype=F64))
-        except NotImplementedError as e:
-            assert "per-env dmask" in str(e)
-        else:
-            raise AssertionError("the step should refuse")
+        s, info = step(m, tmodel.make_state(m, batch=2), torch.zeros(
+            (2, m.nu), dtype=F64))
+        assert torch.isfinite(s.qvel).all() and not info.diverged.any()
+        assert info.contact_force.shape == (2, m.ncon)
 
 
 def check_narrowphase_cases():

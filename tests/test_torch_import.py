@@ -44,7 +44,7 @@ print(json.dumps([names, bad]))
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
     names, bad = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 75, out.stdout
+    assert len(names) >= 80, out.stdout
     for mod in ("mpc", "tasks.registry", "tasks.swimmer", "rl.rewards",
                 "rl.env", "rl.networks", "rl.curriculum", "rl.sac",
                 "rl.ppo", "rl.train", "agent", "mpc_in_env",
@@ -66,7 +66,9 @@ print(json.dumps([names, bad]))
                 "physics.humanoid_upstream", "physics.humanoid21_data",
                 "physics.op3_data", "tasks.aloha", "tasks.fingers",
                 "tasks.humanoid21", "tasks.humanoid_track", "tasks.op3",
-                "tasks.panda", "tasks.pickplace", "tasks.quadrotor"):
+                "tasks.panda", "tasks.pickplace", "tasks.quadrotor",
+                "physics.allegro_data", "physics.shadow_data",
+                "tasks.hands", "tasks.interact", "tasks.rubik"):
         assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
 

@@ -15,8 +15,10 @@ wrench-perturbed rollouts) and the RL tools (tune, plot, videos with
 the renderer and the viewer), the contact-rich model family (capsule
 and box narrowphase, fixed tendons, gravcomp, site actuators, RK4, the
 upstream humanoid, OP3, Panda, PickAndPlace, FreeFingers, the Quadrotor
-and the bimanual Handover), each against the JAX package on the same
-numpy-seeded inputs, and the port's import isolation. This test runs them all. The kernels themselves are checked
+and the bimanual Handover), the top-k contact tier (Allegro, Shadow,
+Bimanual Insert and Reorient, Humanoid Interact, Rubik: kernel B2's
+twin with a per-env chain mask), each against the JAX package on the
+same numpy-seeded inputs, and the port's import isolation. This test runs them all. The kernels themselves are checked
 on the card by chip_smoke.py.
 
 One item on purpose: the tier-1 command runs pytest-xdist with
@@ -43,10 +45,11 @@ rollout, robust and gradient plans; the pendulum planners, Riccati,
 the renderer and the viewer) and the contact family's four (the four
 plain-step models and the Handover's plan; the upstream humanoid; OP3
 and the humanoid's derivatives; the Handover with its divergence
-witness and derivatives) are built in twenty-four processes: each is a
+witness and derivatives) and the top-k tier's one (its six models'
+steps, probes and residuals) are built in twenty-five processes: each is a
 jit trace of a step, Python that holds the GIL, so threads would run
 them one after another. The RL env's process also runs the JAX
-`record_episode` the videos check reads. A twenty-fifth runs the
+`record_episode` the videos check reads. A twenty-sixth runs the
 estimation slice's checks that need no JAX reference (the JAX tests'
 scenarios on the port, about a minute), and a freed worker its checks
 against the references, while this process runs the iLQG, task and
@@ -73,6 +76,7 @@ import test_torch_serving
 import test_torch_step
 import test_torch_swimmer
 import test_torch_tasks
+import test_torch_topk
 
 torch.set_num_threads(1)
 
@@ -88,13 +92,14 @@ def test_port_matches_jax():
     with ProcessPoolExecutor(
             max_workers=len(names) + len(serving_names) + len(ilqg_names)
             + len(task_names) + len(est_names) + len(planner_names)
-            + len(contact_names) + 1,
+            + len(contact_names) + 2,
             mp_context=multiprocessing.get_context("spawn")) as procs, \
             ThreadPoolExecutor(max_workers=4) as pool:
         planners = [procs.submit(test_torch_planners.reference, n)
                     for n in planner_names]
         contact = [procs.submit(test_torch_contact.reference, n)
                    for n in contact_names]
+        topk = procs.submit(test_torch_topk.reference)
         ilqg = [procs.submit(test_torch_ilqg.reference, n)
                 for n in ilqg_names]
         estimation = [procs.submit(test_torch_estimation.reference, n)
@@ -140,6 +145,8 @@ def test_port_matches_jax():
         test_torch_contact.run_local_checks()
         test_torch_contact.run_reference_checks(
             {n: f.result() for n, f in zip(contact_names, contact)})
+        test_torch_topk.run_local_checks()
+        test_torch_topk.run_reference_checks(topk.result())
         est_local.result()
         est_checks.result()
         swimmer.result()

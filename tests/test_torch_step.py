@@ -20,8 +20,8 @@ process-wide cache, so the tests share the compiled eager ops:
   gaps, which the test asserts first; float64 at 1e-9.
 
 Tolerances are max-abs error over max-abs value. Also: the divergence
-freeze, the 64 x 64 floor through the "contact" route, the paths of
-later slices raising, and the shared-memory sizing
+freeze, the 64 x 64 floor through the "contact" route, a top-k model
+through B2's per-env twin, and the shared-memory sizing
 of kernel B2 (one env's working set, and the refusal of a model too
 large for a block). tests/test_torch_port.py
 runs these checks as the port's one collected test (ROADMAP.md, "Keep
@@ -50,7 +50,8 @@ from humanoid_mujoco_torch.physics.model import (JointType, ModelBuilder,
                                                  make_state)
 from humanoid_mujoco_torch.physics.solver import (contact_dmask,
                                                   limit_rows_static)
-from humanoid_mujoco_torch.physics.step import route, step
+from humanoid_mujoco_torch.physics.step import (forward, keeps_selection,
+                                                route, step)
 
 torch.set_num_threads(1)
 
@@ -231,9 +232,9 @@ def check_later_slice_paths_raise():
     torch.testing.assert_close(info_big.contact_force,
                                info_ref.contact_force, rtol=0, atol=1e-4)
     # gravcomp steps since slice 9 ("contact"): a fully compensated
-    # ball above the floor stays at rest; what a later slice brings
-    # still raises: a contact model whose top-k selection needs B2's
-    # per-env dmask (item 9e, queue 2)
+    # ball above the floor stays at rest; since slice 10 a contact model
+    # whose JAX step keeps its top-k selection steps too, B2 (here its
+    # twin) on the k selected slots with their per-env mask
     b = ModelBuilder()
     body = b.add_body("ball", -1, pos=(0.0, 0.0, 1.0), mass=1.0,
                       inertia=(0.1, 0.1, 0.1), gravcomp=1.0)
@@ -251,9 +252,20 @@ def check_later_slice_paths_raise():
     for i in range(300):
         b.add_sphere(body, pos=(0.001 * i, 0.0, 0.0), radius=0.1)
     b.max_contacts = 16
-    many = b.finalize(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        step(many, make_state(many), torch.zeros(1, 0))
+    many = b.finalize(dtype=torch.float64, device="cpu")
+    assert route(many) == "contact" and keeps_selection(many)
+    s_many = make_state(many, qvel=0.1 * torch.ones(1, many.nv,
+                                                    dtype=torch.float64))
+    s1_many, info_many = step(many, s_many, torch.zeros(1, 0))
+    qacc_fwd = forward(many, s_many, torch.zeros(1, 0))[0]
+    torch.testing.assert_close(info_many.qacc, qacc_fwd, rtol=0,
+                               atol=1e-10)
+    assert info_many.contact_force.shape == (1, 300)
+    loaded = torch.nonzero(info_many.contact_force[0] > 0)[:, 0]
+    kept = torch.sort(info_many.contact_dist[0], stable=True).indices[:16]
+    assert 0 < len(loaded) <= 16 and set(loaded.tolist()) <= set(
+        kept.tolist())
+    assert torch.isfinite(s1_many.qvel).all()
     with pytest.raises(ValueError):
         step(m, s.replace(qpos=s.qpos.double()), torch.zeros(1, m.nu))
 
@@ -290,8 +302,22 @@ def check_solver_shared_memory_sizing():
     assert smem <= fused_solver.SMEM_MAX == 227 * 1024
     with pytest.raises(ValueError, match="bytes of shared memory"):
         fused_solver.solver_block_shape(nv, 2000, nlim, 2000 * nv)
-    with pytest.raises(ValueError, match="at most 32 dofs"):
-        fused_solver.solver_block_shape(40, K, nlim, 376)
+    with pytest.raises(ValueError, match="at most 64 dofs"):
+        fused_solver.solver_block_shape(70, K, nlim, 376)
+    # a per-env mask: the block keeps only the lower-triangle pairs; each
+    # env adds its chain signs, K + 1 offsets and its dofs and (slot,
+    # dof) positions as bytes, for `chain` entries
+    assert fused_solver.solver_smem_bytes(nv, K, nlim, 376, 1, True) == \
+        _round16(nv * (nv + 1)) + 4 * _round4(
+            6537 + 376 + K + 1 + -(-376 // 4) + -(-K * nv // 4))
+
+
+def _round16(x):
+    return -(-x // 16) * 16
+
+
+def _round4(x):
+    return -(-x // 4) * 4
 
 
 def run_checks():

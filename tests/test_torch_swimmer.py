@@ -248,12 +248,14 @@ def check_mpc():
 
 def check_registry():
     assert registry.list_tasks() == [
-        "Acrobot", "Bimanual Handover", "Cartpole", "FreeFingers",
-        "Humanoid Cap Stand", "Humanoid Cap Walk", "Humanoid Stand",
-        "Humanoid Track", "Humanoid Walk", "OP3", "Panda", "Particle",
-        "ParticleFixed", "PickAndPlace", "Quadrotor", "Quadruped Flat",
-        "Quadruped Hill", "Swimmer", "Walker"]
-    assert set(registry.list_tasks()) <= set(jregistry.list_tasks())
+        "Acrobot", "Allegro", "Bimanual Handover", "Bimanual Insert",
+        "Bimanual Reorient", "Cartpole", "FreeFingers",
+        "Humanoid Cap Stand", "Humanoid Cap Walk", "Humanoid Interact",
+        "Humanoid Stand", "Humanoid Track", "Humanoid Walk", "OP3",
+        "Panda", "Particle", "ParticleFixed", "PickAndPlace", "Quadrotor",
+        "Quadruped Flat", "Quadruped Hill", "Rubik", "Shadow", "Swimmer",
+        "Walker"]
+    assert registry.list_tasks() == jregistry.list_tasks()
     task = registry.get_task("Swimmer", dtype=torch.float64, device="cpu")
     assert task.name == "Swimmer" and task.nres == 7
     m = registry.task_model("Swimmer", dtype=torch.float64, device="cpu")

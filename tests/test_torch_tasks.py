@@ -282,8 +282,11 @@ def check_tasks():
     contact = {"Bimanual Handover", "FreeFingers", "Humanoid Stand",
                "Humanoid Track", "Humanoid Walk", "OP3", "Panda",
                "PickAndPlace", "Quadrotor"}
-    assert set(NEW) | {"Humanoid Cap Stand", "Swimmer"} | contact == \
-        set(registry.list_tasks())
+    # and the top-k tier (slice 10) tests/test_torch_topk.py's
+    topk = {"Allegro", "Bimanual Insert", "Bimanual Reorient",
+            "Humanoid Interact", "Rubik", "Shadow"}
+    assert set(NEW) | {"Humanoid Cap Stand", "Swimmer"} | contact | topk \
+        == set(registry.list_tasks())
     for name in MODELS:
         np.testing.assert_array_equal(
             registry.home_qpos(name, port_model(name)).numpy(),

@@ -51,14 +51,14 @@ B2_MARKS = (
     ("  // line-search lanes:", "Gram terms, D, aref"),
     ("    // lanes over dofs: M (x - a_smooth)", "residuals, active set"),
     ("    // H = M + J", "gradient"),
-    ("    __syncwarp();\n    warp_chol(H, nv, ld, INV);\n    const float pu",
+    ("    __syncwarp();\n    chol<R>(H, nv, ld, INV);\n    float pu[R];",
      "Hessian"),
     ("    // ---- line search on the fixed grid ----", "chol(H), solve"),
     ("    // lanes over (edge, grid point)", "line search: J p"),
     ("    // piecewise-linear monotone dphi", "line search: grid"),
     ("  // ---- final forces", "line search: step (last)"),
     ("  // ---- implicit-damping Euler", "final forces"),
-    ("  if (lane < nv) {\n    const float h = __ldg(a.dt);", "Euler"),
+    ("  const float h = __ldg(a.dt);", "Euler"),
 )
 B3_MARKS = (
     ("  // ---- Cholesky of M (in H)", "load inputs"),
