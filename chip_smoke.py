@@ -39,7 +39,7 @@ the port's three paths:
   MPPI, CEM and iLQG planners, an Agent at its defaults (64 samples,
   horizon 17, plan dt 0.02; iLQG's 8 line-search alphas) behind
   MPCServer (2 planner iterations) on 127.0.0.1, a client thread's 20
-  JSON requests (8 for iLQG, cut for time; noisy
+  JSON requests (4 for iLQG, cut for time; noisy
   stand-pose observations) and a malformed one:
   every reply 12 finite floats, the malformed one an error, position
   mode joint_pos + 0.3 torque; median and p90 latency, control rate, B1
@@ -96,7 +96,7 @@ the port's three paths:
   (`serving_filter`);
 - the planner slice (after the task slice, before estimation): robust,
   sample-gradient, gradient and iLQS at their defaults on the humanoid
-  stand (plan model, float32), 3 plan calls each (median ms by CUDA
+  stand (plan model, float32), 2 plan calls each (median ms by CUDA
   events, B1, B2 and B3 launches a call by the counters, busy time and
   idle share of one call by torch.profiler) and a 10-tick closed loop
   beside the zero-control loop's stand cost; B1 and B2 on the robust
@@ -138,13 +138,29 @@ the port's three paths:
   (`b2_per_env_equals_static`);
 - bench.py's handover8191x128 cell (after the planner slice, before
   estimation): the Handover's predictive-sampling plan at 8191 x 128 x
-  4 linear knots with 1 solver iteration (3 timed plans: latency,
+  4 linear knots with 1 solver iteration (2 timed plans: latency,
   rollout steps/s, launches, idle share); one more plan's candidates
   and tests/test_torch_contact.py's witness candidates rolled until all
   diverge, each one's divergence step; B2 at that one iteration on the
   first-step states of all 8191 candidates against its twins, with its
   bare time and bound; and a 1024-sample plan at 8 iterations whose
-  candidates must all stay finite (`handover`).
+  candidates must all stay finite (`handover`);
+- the host surface and multi-GPU (after serving): the AsyncAgent's plan
+  thread under realtime_eval's 100 Hz control loop for 3 s with the
+  sampling planner (128 candidates) and with iLQG, the robot proxy in a
+  process of its own (control Hz, plans/s, get_action's p50 and p99;
+  B1 and B2 launches exactly 17, or 34, a plan and every one from the
+  plan thread, on its current stream), three (two) hand-driven plans
+  whose published policy equals a synchronous Agent's to the bit, and
+  an injected plan-thread failure re-raised by get_action and stop()
+  (`async_agent`); 20 requests at 100 Hz to MPCServer(async_mode=True)
+  (`server_async`); measure_async_rates (`realtime_eval`); a LiveSession
+  served on 127.0.0.1 (page, snapshot, a weight slider reaching the plan
+  thread, a push moving the root; `live`); StageTimers and a trace_to
+  trace naming B1's and B2's kernels (`profiling`); and a one-rank NCCL
+  group: the 1024 x 100 candidate-sharded plan and the dp-sharded PPO
+  step at PPOConfig() each equal to its unsharded counterpart to the
+  bit, timed (`multi_gpu`).
 
 Each path is driven with the kernels' launch counters set to 0 just
 before it and read just after. The `environment` line carries ptxas's
@@ -165,8 +181,8 @@ the estimation slice, and B1's and B2's time, plain time and bound at
 the UKF's batch of 73; B1's and B2's launches on the planner slice and
 their time, plain time and bound on its batch-20 wrench steps; B2's
 launches in the Handover plan and its time, plain time and bound on
-its 8191 first-step states at one iteration) and
-the script's total seconds. The last
+its 8191 first-step states at one iteration; B1's and B2's launches on
+the host and multi-GPU phases) and the script's total seconds. The last
 line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -1340,14 +1356,17 @@ def device_rows(fn):
     return sorted(rows, key=lambda x: -x[2])
 
 
-def profile_rows_complete(fn, want, sessions=1, attempts=5):
+def profile_rows_complete(fn, want, sessions=1, attempts=5, fresh=None):
     """`profile_rows` of `sessions` fn() calls, each in a profiler
     session of its own (a 30 k-launch session has dropped launches) that
     saw `want` launches of the port's kernels; a session that dropped
     some or recorded nothing (CUPTI has done both, now and then, once
     three times in a row a second apart, after a 6 k-launch session) is
-    run again 1, 2, 4 and 8 s later. Returns (the rows merged by kernel,
-    the sessions run)."""
+    run again 1, 2, 4 and 8 s later. Where every attempt missed (one B1
+    launch missed in every retry of a process has ended whole runs, and
+    never showed in a fresh process), `fresh()` runs the same sessions
+    in a new process, under the same check. Returns (the rows merged by
+    kernel, the sessions run)."""
     merged, runs = {}, 0
     for _ in range(sessions):
         for attempt in range(attempts):
@@ -1361,8 +1380,12 @@ def profile_rows_complete(fn, want, sessions=1, attempts=5):
             if rows and seen == want:
                 break
         else:
-            raise AssertionError(("the profiler missed launches", seen,
-                                  want, rows[:5]))
+            missed = ("the profiler missed launches", seen, want, rows[:5])
+            if fresh is None:
+                raise AssertionError(missed)
+            log("profiler_fresh_process", missed=str(missed)[:300])
+            rows, fresh_runs = fresh()
+            return rows, runs + fresh_runs
         for key, n, t in rows:
             c, d = merged.get(key, (0, 0.0))
             merged[key] = (c + n, d + t)
@@ -1748,8 +1771,8 @@ def run_rl(device="cuda", gpu="cpu", B=RL_BATCH, nsteps=RL_STEPS,
 SERVE_PLANNERS = ("sampling", "mppi", "cem", "ilqg")
 SERVE_REQUESTS, SERVE_ITERS = 20, 2
 # iLQG's requests (~1.7 s each on the H100) and its MPC in the env: cut
-# from 20 and 0.05 s so that the whole script stays near half its limit
-SERVE_ILQG_REQUESTS = 8
+# from 20, then 8, and 0.05 s to stay inside the time limit
+SERVE_ILQG_REQUESTS = 4
 MPC_IN_ENV_SECONDS, MPC_IN_ENV_RF = 0.2, 0.1
 # MPC in the env with the default planner, iLQG: a shorter run than
 # sampling's (each tick is two iLQG iterations, ~10x a sampling tick)
@@ -1777,15 +1800,20 @@ def serve_observations(m, n, seed=3):
     return out
 
 
-def serve_client(port, requests, result, timeout=120.0):
+def serve_client(port, requests, result, timeout=120.0, period=0.0):
     """One TCP connection to 127.0.0.1:port; each request (bytes) sent
-    after the reply to the one before. Fills result["replies"] and
-    result["ms"] (client-side latency of each)."""
+    after the reply to the one before, and `period` s after the one
+    before at the earliest (a robot's control period). Fills
+    result["replies"] and result["ms"] (client-side latency of each)."""
     import socket
     dec = json.JSONDecoder()
     replies, ms, buf = [], [], ""
+    start = time.perf_counter()
     with socket.create_connection(("127.0.0.1", port), timeout=timeout) as c:
-        for req in requests:
+        for i, req in enumerate(requests):
+            wait = start + i * period - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
             t0 = time.perf_counter()
             c.sendall(req)
             while True:
@@ -2467,6 +2495,10 @@ CARTPOLE_ILQG_ITERS = 8
 CONTACT_HOLD_STEPS, CONTACT_ILQG_TICKS = 150, 2
 # the top-k tier's loops, at the JAX tests' lengths
 HAND_HOLD_STEPS, REORIENT_SETTLE_STEPS = 300, 200
+# cut for the time limit: the contact family's and the top-k
+# tier's rollouts run 1024 x 50, not 100 (each a single counted run of
+# 47-81 ms a step), and the task agents plan at horizon 8, not 17
+CONTACT_ROLLOUT_HORIZON, TASK_AGENT_HORIZON = 50, 8
 
 
 def task_states(name, m, B, seed=0):
@@ -2901,10 +2933,31 @@ def task_rollout(name, m, B, horizon, seed=6):
     return rollout
 
 
+def short_profile(name, B, short, sessions, want):
+    """Task `name`'s `short`-step rollout at batch B profiled in
+    `sessions` sessions (`profile_rows_complete`), on the card."""
+    from humanoid_mujoco_torch.tasks import task_model
+    few = task_rollout(name, task_model(name, device="cuda"), B, short)
+    few()
+    return profile_rows_complete(few, want, sessions)
+
+
+def fresh_short_profile(name, B, short, sessions, want):
+    """`short_profile` in a new process (`--short-profile`): its rows
+    and sessions, from the JSON line it prints last."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--short-profile",
+         json.dumps([name, B, short, sessions, want])],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows, runs = json.loads(out.stdout.strip().splitlines()[-1])
+    return [tuple(r) for r in rows], runs
+
+
 def task_rollouts(device, timer, B, horizon, profile="Walker",
-                  short=2, sessions=3):
+                  short=2, sessions=1):
     """The 1024 x 100 rollout of each model under its task: ms (CUDA
-    events, median of 3 after the counted run; the contact family's
+    events, one run after the counted run; the contact family's
     counted run), steps/s, kernel launches
     per step (counters), and for `profile` the device busy time, all
     launches and the idle share of one rollout (torch.profiler). For
@@ -2917,43 +2970,47 @@ def task_rollouts(device, timer, B, horizon, profile="Walker",
     out, launches = {}, {}
     for name in TASK_ROLLOUTS:
         m = task_model(name, device=device)
-        rollout = task_rollout(name, m, B, horizon)
+        family = name in CONTACT_MODELS + TOPK_MODELS
+        h = min(horizon, CONTACT_ROLLOUT_HORIZON) if family else horizon
+        rollout = task_rollout(name, m, B, h)
         counters_zero()
         res, ms = timer.once(rollout)     # counted, and the warm-up
         n = counters()
-        if name not in CONTACT_MODELS + TOPK_MODELS:
-            ms = timer(rollout, 3)
+        if not family:
+            ms = timer(rollout, 1)
         launches[name] = n
-        r = {"batch": B, "horizon": horizon, "ms": ms,
-             "steps_per_s": B * horizon / (ms * 1e-3),
+        r = {"batch": B, "horizon": h, "ms": ms,
+             "steps_per_s": B * h / (ms * 1e-3),
              "launches": n,
-             "launches_per_step": {k: v / horizon for k, v in n.items()},
+             "launches_per_step": {k: v / h for k, v in n.items()},
              "mean_return": float(res.total_return.mean()),
              "diverged": int(res.diverged.sum())}
         if device != "cpu":
             if name == profile:
                 busy, all_launches = profile_busy_ms(rollout)
                 r.update(device_busy_ms=busy, cuda_launches=all_launches,
-                         cuda_launches_per_step=all_launches / horizon,
+                         cuda_launches_per_step=all_launches / h,
                          idle_share=1.0 - busy / ms)
             few = task_rollout(name, m, B, short)
             few()
-            rows, runs = profile_rows_complete(few, short * sum(
-                ROUTE_LAUNCHES[TASK_ROUTES[name]].values()), sessions)
+            want = short * sum(ROUTE_LAUNCHES[TASK_ROUTES[name]].values())
+            rows, runs = profile_rows_complete(
+                few, want, sessions, fresh=lambda: fresh_short_profile(
+                    name, B, short, sessions, want))
             steps = short * sessions
             busy = sum(x[2] for x in rows) / 1e3
             r["short"] = {
                 "horizon": steps, "profiler_sessions": runs,
                 "busy_ms_per_step": busy / steps,
                 "cuda_launches_per_step": sum(x[1] for x in rows) / steps,
-                "idle_share": 1.0 - busy / steps / (ms / horizon),
+                "idle_share": 1.0 - busy / steps / (ms / h),
                 "top": [(k[:60], c, t / 1e3) for k, c, t in rows[:3]]}
         out[name] = r
         assert bool(torch.isfinite(res.total_return).all()), name
         assert not bool(res.diverged.any()), (name, r)
         if device != "cpu":
             want = ROUTE_LAUNCHES[TASK_ROUTES[name]]
-            assert n == {k: v * horizon for k, v in want.items()}, (name, n)
+            assert n == {k: v * h for k, v in want.items()}, (name, n)
     return out, launches
 
 
@@ -3101,7 +3158,8 @@ def acrobot_pumps(device):
 
 def task_agents(device):
     """`Agent(task_model(name), name)` for each task of the first tier
-    and the top-k tier at its default planner (iLQG, horizon 17): one
+    and the top-k tier at its default planner (iLQG, horizon
+    TASK_AGENT_HORIZON, cut from 17 for time): one
     planner_step and one get_action from
     the home keyframe (Quadruped Hill's on the slope at the first
     waypoint; Humanoid Cap Walk in mode "Walk"), with the kernels each
@@ -3112,7 +3170,7 @@ def task_agents(device):
     out, launches = {}, {}
     for name in TASK_NAMES + TOPK_MODELS:
         m = task_model(name, device=device)
-        a = Agent(m, name)
+        a = Agent(m, name, horizon=TASK_AGENT_HORIZON)
         if name == "Humanoid Cap Walk":
             a.set_mode("Walk")
         q = home_qpos(name, m)
@@ -3898,7 +3956,7 @@ def run_estimation(device="cuda", gpu="cpu"):
 # stand (plan model, float32, each planner at its JAX config defaults),
 # the JAX planner tests' scenarios, the parallel Riccati pass and the RL
 # tools
-PLANNER_CALLS, PLANNER_TICKS, PLANNER_SIM_STEPS = 3, 10, 10
+PLANNER_CALLS, PLANNER_TICKS, PLANNER_SIM_STEPS = 2, 10, 10
 RICCATI_T = (17, 128, 512)
 RICCATI_TOL = 1e-10
 TUNE_TRIALS, TUNE_ITERS, TUNE_ENVS = 3, 2, 32
@@ -4453,7 +4511,7 @@ def run_planners(device="cuda", gpu="cpu", calls=PLANNER_CALLS):
 # port: tests/test_torch_contact.py's witness); then a 1024-sample plan
 # at the step's default 8 iterations, whose candidates must stay finite
 HANDOVER_N, HANDOVER_H, HANDOVER_K = 8191, 128, 4
-HANDOVER_CALLS, HANDOVER_CHECK_N = 3, 1024
+HANDOVER_CALLS, HANDOVER_CHECK_N = 2, 1024
 # the profiled plans: 4 sessions of a 4-step plan of the same width
 HANDOVER_PROFILE_H, HANDOVER_PROFILE_SESSIONS = 4, 4
 # the divergence witness (tests/test_torch_contact.py, `witness_inputs`:
@@ -4855,6 +4913,491 @@ def run_handover(device="cuda", gpu="cpu", **kw):
     return table
 
 
+# the host surface and multi-GPU slice: the async plan thread, the
+# async server, realtime eval, the live viewer, profiling, and the
+# torch.distributed sharded plan and dp PPO step
+ASYNC_SECONDS, ASYNC_HZ, ASYNC_NSAMPLE = 3.0, 100.0, 128
+ASYNC_HAND_ITERS = {"sampling": 3, "ilqg": 1}
+LIVE_SECONDS = 2.0
+ASYNC_SERVE_PERIOD = 0.01    # the async requests' 100 Hz control period
+
+
+class launch_log:
+    """Within the block, each AsyncAgent.start first calls
+    `on_start(agent)`, and from the first start on each launch of B1, B2
+    or B3 (`kernels.launch`) records (kernel, launching thread, the CUDA
+    stream it went on)."""
+
+    def __init__(self, on_start=None):
+        self.calls, self.agents, self.on_start = [], [], on_start
+
+    def __enter__(self):
+        import threading
+        from humanoid_mujoco_torch import kernels
+        from humanoid_mujoco_torch.native import async_agent
+        self.saved = kernels.launch, async_agent.AsyncAgent.start
+        launch, start = self.saved
+
+        def spy(name, *a):
+            if self.agents:
+                self.calls.append((name, threading.get_ident(),
+                                   torch.cuda.current_stream().cuda_stream))
+            return launch(name, *a)
+
+        def starting(agent):
+            self.agents.append(agent)
+            if self.on_start is not None:
+                self.on_start(agent)
+            return start(agent)
+        kernels.launch = spy
+        async_agent.AsyncAgent.start = starting
+        return self
+
+    def __exit__(self, *exc):
+        from humanoid_mujoco_torch import kernels
+        from humanoid_mujoco_torch.native import async_agent
+        kernels.launch, async_agent.AsyncAgent.start = self.saved
+
+    def plan_thread_only(self, device):
+        """Every launch came from the one plan thread, none from the
+        control side, on the plan thread's current stream (the device's
+        default stream). Returns (threads, streams) for the log."""
+        import threading
+        threads = {t for _, t, _ in self.calls}
+        streams = {s for _, _, s in self.calls}
+        if device != "cpu":
+            (aa,) = self.agents
+            assert threads and threading.get_ident() not in threads, \
+                "a kernel was launched on the control thread"
+            assert len(threads) == 1, threads
+            assert streams == {aa.plan_stream.cuda_stream} == {
+                torch.cuda.default_stream().cuda_stream}, streams
+        return len(threads), len(streams)
+
+
+def async_run(device, planner, seconds, per_plan):
+    """realtime_eval.run with `planner` for `seconds` at ASYNC_HZ (sampling
+    at ASYNC_NSAMPLE): its rates and get_action's latency, the launches
+    of B1 and B2 from AsyncAgent.start to the joined plan thread's last
+    plan, held to plan iterations x `per_plan`, every one from the plan
+    thread on its stream."""
+    from humanoid_mujoco_torch.serving import realtime_eval
+    with launch_log(on_start=lambda a: counters_zero()) as rec:
+        out = realtime_eval.run(seconds=seconds, control_hz=ASYNC_HZ,
+                                planner=planner, nsample=ASYNC_NSAMPLE,
+                                horizon=17, verbose=False, device=device)
+    launches = counters()
+    threads, streams = rec.plan_thread_only(device)
+    n = out["plan_iterations"]
+    assert n > 0, out
+    if device != "cpu":
+        assert launches == {"smooth": n * per_plan, "solver": n * per_plan,
+                            "euler": 0}, (launches, n, per_plan)
+    return dict(planner=planner, seconds=seconds, control_hz=ASYNC_HZ,
+                launches=launches, launches_per_plan=per_plan,
+                launching_threads=threads, launch_streams=streams, **out)
+
+
+def async_hand_driven(device, planner, iters, nsample=ASYNC_NSAMPLE,
+                      seed=11):
+    """`iters` hand-driven `_plan_once` calls of an AsyncAgent (its loop
+    not started), each after a fresh state and with seeded candidate
+    noise, against a synchronous Agent given the same states and noise:
+    the published policy equal to the bit, get_action (on the CPU) within
+    1e-5 of the Agent's on its device (relative to max(1, |u|))."""
+    import pickle
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.native.async_agent import AsyncAgent
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.tasks import stand_task
+    m = humanoid.build_humanoid(device=device)
+    a1, a2 = (Agent(m, stand_task(device=device), planner=planner,
+                    nsample=nsample) for _ in range(2))
+    aa = AsyncAgent(a1)
+    rng = np.random.default_rng(seed)
+    q0 = humanoid.stand_qpos(m).double().cpu().numpy()
+    worst = 0.0
+    for i in range(iters):
+        q = q0.copy()
+        q[7:] += 0.02 * rng.standard_normal(m.nq - 7)
+        v = 0.1 * rng.standard_normal(m.nv)
+        t = 0.02 * i
+        noise = None
+        if planner != "ilqg":
+            noise = torch.tensor(rng.standard_normal(
+                (nsample, a1.cfg.nknots, m.nu)), dtype=m.dtype,
+                device=device)
+        aa.set_state(q, v, t)
+        aa._plan_once(noise=noise)
+        a2.set_state(qpos=q, qvel=v, time=t)
+        a2.planner_step(noise=noise)
+        pub = pickle.loads(aa.policy_buf.read())
+        ref = a2.pstate
+        leaves = ([(pub.times, ref.times), (pub.values, ref.values)]
+                  if planner != "ilqg" else
+                  [(getattr(pub.policy, k), getattr(ref.policy, k))
+                   for k in ("times", "qpos_nom", "qvel_nom", "u_nom", "K",
+                             "k_scale")] + [(pub.reg, ref.reg)])
+        for x, y in leaves:
+            assert torch.equal(x, y.cpu()), (planner, i, "policy differs")
+        u1 = aa.get_action(q, v, t)
+        u2 = a2.get_action(time=t)
+        worst = max(worst, float(np.max(np.abs(u1 - u2)))
+                    / max(1.0, float(np.max(np.abs(u2)))))
+    assert worst <= 1e-5, (planner, worst)
+    return dict(planner=planner, iterations=iters, policy_bitwise=True,
+                get_action_max_abs_err=worst)
+
+
+def async_failure(device):
+    """An exception raised on the plan thread stops the loop and is
+    re-raised by get_action and by stop()."""
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.native.async_agent import AsyncAgent
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.tasks import stand_task
+    m = humanoid.build_humanoid(device=device)
+    aa = AsyncAgent(Agent(m, stand_task(device=device), planner="sampling",
+                          nsample=16, horizon=5))
+
+    def boom(agent):
+        raise ValueError("injected plan-thread failure")
+    aa.start()
+    aa.submit(boom)
+    deadline = time.time() + 60.0
+    while aa.loop.error is None and time.time() < deadline:
+        time.sleep(0.01)
+    q = humanoid.stand_qpos(m).double().cpu().numpy()
+    raised = {}
+    for name, fn in (("get_action", lambda: aa.get_action(
+            q, np.zeros(m.nv), 0.0)), ("stop", aa.stop)):
+        try:
+            fn()
+        except RuntimeError as e:
+            assert isinstance(e.__cause__, ValueError), e.__cause__
+            raised[name] = str(e.__cause__)
+    assert set(raised) == {"get_action", "stop"}, raised
+    return raised
+
+
+def server_async(device, requests=SERVE_REQUESTS):
+    """MPCServer(async_mode=True) with the sampling agent at the serving
+    phase's settings: `requests` JSON requests at a 100 Hz period, each
+    reply 12 finite floats from the latest published policy; the plan
+    loop ran at least once; B1 and B2 launched only by it, 17 each a
+    plan."""
+    import threading
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.serving import MPCServer
+    from humanoid_mujoco_torch.tasks import stand_task
+    m = humanoid.build_humanoid(device=device)
+    agent = Agent(m, stand_task(device=device), planner="sampling",
+                  nsample=64, horizon=17)
+    srv = MPCServer(agent, port=0, async_mode=True)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    assert srv.listening.wait(30.0), "the server did not bind"
+    obs = serve_observations(m, requests)
+    reqs = [json.dumps(o).encode() for o in obs]
+    result = {}
+    with launch_log(on_start=lambda a: counters_zero()) as rec:
+        client = threading.Thread(
+            target=serve_client, args=(srv.port, reqs, result),
+            kwargs=dict(period=ASYNC_SERVE_PERIOD), daemon=True)
+        client.start()
+        client.join(timeout=300.0)
+        (aa,) = rec.agents
+        srv.stop()       # joins the plan thread; re-raises its failure
+        server.join(timeout=30.0)
+    launches = counters()
+    assert not client.is_alive() and not server.is_alive()
+    iters = aa.loop.iterations
+    threads, streams = rec.plan_thread_only(device)
+    for r in result["replies"]:
+        assert isinstance(r, list) and len(r) == 12 \
+            and np.all(np.isfinite(r)), r
+    assert iters > 0, iters
+    if device != "cpu":
+        assert launches == {"smooth": 17 * iters, "solver": 17 * iters,
+                            "euler": 0}, (launches, iters)
+    ms = result["ms"]
+    return dict(requests=requests, period_s=ASYNC_SERVE_PERIOD,
+                median_ms=float(np.median(ms)),
+                p90_ms=float(np.percentile(ms, 90)),
+                max_ms=float(np.max(ms)), first_ms=float(ms[0]),
+                plan_iterations=iters, launches=launches,
+                launching_threads=threads, launch_streams=streams)
+
+
+def live_session(device, seconds=LIVE_SECONDS):
+    """A LiveSession on the cap humanoid served on 127.0.0.1 for about
+    `seconds`: the page and the snapshot route answer, the snapshot
+    advances, a set_weight reaches the plan thread's agent, and a push
+    of the page's +X button moves the root along +x by 5 mm within
+    0.06 s of sim after a physics tick applied it."""
+    import urllib.request
+    from humanoid_mujoco_torch.viz.live import LiveSession, serve_live
+    session = LiveSession(task_name="Humanoid Cap Stand",
+                          planner="sampling", nsample=64, horizon=17,
+                          control_hz=50.0, realtime=True, device=device)
+    counters_zero()
+    session.start()
+    srv = serve_live(session, port=0, block=False)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.status, r.read()
+
+    def post(path, payload):
+        req = urllib.request.Request(base + path, method="POST",
+                                     data=json.dumps(payload).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status
+    try:
+        status, page = get("/")
+        assert status == 200 and b"const META =" in page, status
+        t0 = time.time()
+        s1 = json.loads(get("/state.json")[1])
+        while s1["t"] == 0.0 and time.time() - t0 < 60:   # the first tick
+            time.sleep(0.05)
+            s1 = json.loads(get("/state.json")[1])
+        time.sleep(seconds / 2)
+        s2 = json.loads(get("/state.json")[1])
+        assert s2["t"] > s1["t"] and len(s2["spheres"]) == len(
+            session.meta["radii"]), (s1, s2)
+        assert post("/set_weight", {"name": "Height", "value": 7.5}) == 200
+        while (session.agent.get_cost_weights()["Height"] != 7.5
+               and time.time() - t0 < 60):
+            time.sleep(0.02)
+        weight = session.agent.get_cost_weights()["Height"]
+        # the push lasts _PUSH_SECONDS of wall time: post it again until
+        # a physics tick has applied it, then let 0.06 s of sim pass
+        x0 = float(session._state["qpos"][0])
+        pushes = 0
+        s3 = json.loads(get("/state.json")[1])
+        while not s3.get("push_active") and time.time() - t0 < 120:
+            assert post("/perturb", {"force": [30.0, 0.0, 0.0]}) == 200
+            pushes += 1
+            time.sleep(0.1)
+            s3 = json.loads(get("/state.json")[1])
+        t_push = s3["t"]
+        while s3["t"] < t_push + 0.06 and time.time() - t0 < 120:
+            time.sleep(0.05)
+            s3 = json.loads(get("/state.json")[1])
+        x1 = float(session._state["qpos"][0])
+    finally:
+        srv.shutdown()
+        session.stop()      # re-raises a failure of either loop
+    launches = counters()
+    assert weight == 7.5, weight
+    assert x1 - x0 > 5e-3, (x0, x1, pushes, s3)
+    if device != "cpu":
+        assert launches["smooth"] > 0 and launches["solver"] > 0, launches
+        assert launches["smooth"] % 17 == 0, launches
+    return dict(snapshot_t=[s1["t"], s2["t"], s3["t"]],
+                control_hz=s3["control_hz"], plans_per_s=s3["plans_per_s"],
+                weight_applied=weight, pushes_posted=pushes,
+                root_dx_after_push=x1 - x0,
+                launches=launches, wall_s=time.time() - t0)
+
+
+def profiling_checks(device):
+    """StageTimers around three sampling plans with block=True, and a
+    torch.profiler trace (trace_to) of one whose file names B1's and
+    B2's kernels."""
+    import tempfile
+    from humanoid_mujoco_torch.agent import Agent
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.tasks import stand_task
+    from humanoid_mujoco_torch.utils import StageTimers, trace_to
+    m = humanoid.build_humanoid(device=device)
+    agent = Agent(m, stand_task(device=device), planner="sampling")
+    agent.set_state(qpos=humanoid.stand_qpos(m))
+    agent.planner_step()
+    timers = StageTimers()
+    for _ in range(3):
+        with timers.section("planner_step", block=True,
+                            result=agent.pstate):
+            agent.planner_step()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    logdir = tempfile.mkdtemp(prefix="trace_", dir=root)
+    with trace_to(logdir):
+        if device != "cpu":
+            # the first kernels of a session can go unrecorded
+            time.sleep(0.05)
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+        agent.planner_step()
+    path = os.path.join(logdir, "trace.json")
+    text = open(path).read()
+    size = os.path.getsize(path)
+    import shutil
+    shutil.rmtree(logdir, ignore_errors=True)
+    names = {k: k in text for k in ("smooth_kernel", "solve_kernel")}
+    if device != "cpu":
+        assert all(names.values()), names
+    return dict(stage_timers=timers.summary(), trace_bytes=size,
+                trace_names=names)
+
+
+def run_host(device="cuda", gpu="cpu", seconds=ASYNC_SECONDS,
+             requests=SERVE_REQUESTS, live_seconds=LIVE_SECONDS,
+             hand_iters=ASYNC_HAND_ITERS):
+    """The host surface's phases: `async_agent` (the plan thread with the
+    sampling planner and iLQG under realtime_eval's control loop, the
+    hand-driven policy against a synchronous Agent, an injected
+    plan-thread failure), `server_async`, `realtime_eval`
+    (measure_async_rates), `live` and `profiling`. Returns B1's and B2's
+    launches on these paths for the kernel table."""
+    from humanoid_mujoco_torch.serving import realtime_eval
+    t_all = time.perf_counter()
+    walls = {}
+    t0 = time.perf_counter()
+    runs = [async_run(device, "sampling", seconds, 17),
+            async_run(device, "ilqg", seconds, 34)]
+    hand = [async_hand_driven(device, p, n) for p, n in hand_iters.items()]
+    failure = async_failure(device)
+    walls["async_agent_s"] = time.perf_counter() - t0
+    log("async_agent", gpu=gpu, runs=runs, hand_driven=hand,
+        failure_reraised=failure, switch_interval_s=sys.getswitchinterval())
+    t0 = time.perf_counter()
+    sa = server_async(device, requests)
+    walls["server_async_s"] = time.perf_counter() - t0
+    log("server_async", gpu=gpu, **sa)
+    t0 = time.perf_counter()
+    counters_zero()
+    rates = realtime_eval.measure_async_rates(device=device)
+    rt_launches = counters()
+    walls["realtime_eval_s"] = time.perf_counter() - t0
+    log("realtime_eval", gpu=gpu, launches=rt_launches, **rates)
+    assert set(rates) == {"async_control_hz", "async_plans_per_s",
+                          "async_action_latency_ms",
+                          "async_action_latency_p99_ms"}, rates
+    assert rates["async_plans_per_s"] > 0, rates
+    t0 = time.perf_counter()
+    live = live_session(device, live_seconds)
+    walls["live_s"] = time.perf_counter() - t0
+    log("live", gpu=gpu, **live)
+    t0 = time.perf_counter()
+    prof = profiling_checks(device)
+    walls["profiling_s"] = time.perf_counter() - t0
+    log("profiling", gpu=gpu, **prof)
+    log("host_walls", **walls, total_s=time.perf_counter() - t_all)
+    return tuple({"launches_async_sampling": runs[0]["launches"][k],
+                  "launches_async_ilqg": runs[1]["launches"][k],
+                  "launches_server_async": sa["launches"][k],
+                  "launches_realtime_eval": rt_launches[k],
+                  "launches_live": live["launches"][k]}
+                 for k in ("smooth", "solver"))
+
+
+def run_multi(device="cuda", gpu="cpu", nsample=PLAN_SAMPLES,
+              horizon=PLAN_HORIZON, ppo_kw=None):
+    """The `multi_gpu` phase: a one-rank process group (NCCL on the
+    card, gloo on the CPU) on 127.0.0.1 through init_distributed; the
+    candidate-sharded sampling plan of the cap humanoid at nsample x
+    horizon against sampling_plan on the same noise, and the dp-sharded
+    PPO step at PPOConfig's defaults against ppo_train_step from the
+    same initial state, both to the bit; each timed, its launches
+    counted; then the group destroyed. (One card: the two-rank math is
+    held on the CPU, tests/test_torch_parallel.py.)"""
+    import socket
+    import torch.distributed as dist
+    from humanoid_mujoco_torch.ops.spline import SplineOrder
+    from humanoid_mujoco_torch.parallel import sharded_sampling_plan
+    from humanoid_mujoco_torch.parallel.distributed import (
+        dp_sharded_ppo_step, init_distributed, shard_env_batch)
+    from humanoid_mujoco_torch.physics import humanoid
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.planners import (SamplingConfig, init_policy,
+                                                sampling_plan)
+    from humanoid_mujoco_torch.rl import env as E
+    from humanoid_mujoco_torch.rl import ppo as P
+    from humanoid_mujoco_torch.tasks import stand_task
+    timer = Timer(device)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = init_distributed(f"127.0.0.1:{port}", 1, 0, device=device)
+    try:
+        backend, world = dist.get_backend(), mesh.size
+        m = humanoid.build_humanoid(device=device)
+        task = stand_task(device=device)
+        cfg = SamplingConfig(nsample=nsample, nknots=3, horizon=horizon,
+                             order=SplineOrder.ZERO)
+        s0 = make_state(m, qpos=humanoid.stand_qpos(m))
+        pol = init_policy(m, 3)
+        noise = torch.tensor(np.random.default_rng(12).standard_normal(
+            (nsample, 3, m.nu)), dtype=m.dtype, device=device)
+        out = {}
+
+        def sharded():
+            out["sharded"] = sharded_sampling_plan(mesh, m, task, cfg, pol,
+                                                   s0, noise=noise)
+
+        def plain():
+            out["plain"] = sampling_plan(m, task, cfg, pol, s0, noise=noise)
+        plain()      # warm-up: the model's packs and tables,
+        sharded()    # and the communicator of the first all_gather
+        counters_zero()
+        sharded_ms = [timer.once(sharded)[1] for _ in range(2)]
+        plan_launches = counters()
+        plain_ms = [timer.once(plain)[1] for _ in range(2)]
+        (p1, i1), (p2, i2) = out["sharded"], out["plain"]
+        assert torch.equal(i1.returns, i2.returns), "returns differ"
+        assert torch.equal(p1.values, p2.values) and int(i1.winner) == int(
+            i2.winner), "winner differs"
+
+        kw = ppo_kw or {}
+        pcfg = P.PPOConfig(**kw)
+        base = E.rl_humanoid_model(device=device)
+        env_cfg = E.EnvConfig()
+        states = []
+        for _ in range(2):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(5)
+            states.append(P.ppo_init(pcfg, env_cfg, base, 0.5, gen))
+        st_dp, st = states
+        st_dp.env_state = shard_env_batch(mesh, st_dp.env_state)
+        st_dp.obs = shard_env_batch(mesh, st_dp.obs)
+        counters_zero()
+        (st_dp, met_dp), dp_ms = timer.once(
+            lambda: dp_sharded_ppo_step(mesh, pcfg, env_cfg, base, st_dp))
+        ppo_launches = counters()
+        (st, met), ppo_ms = timer.once(
+            lambda: P.ppo_train_step(pcfg, env_cfg, base, st))
+        for a, b in zip(st_dp.params(), st.params()):
+            assert torch.equal(a, b), "dp PPO parameters differ"
+        for k in met:
+            assert torch.equal(met_dp[k], met[k]), (k, met_dp[k], met[k])
+        assert torch.equal(st_dp.obs, st.obs), "dp PPO obs differ"
+        if device != "cpu":
+            assert plan_launches == {"smooth": 2 * horizon,
+                                     "solver": 2 * horizon, "euler": 0}, \
+                plan_launches
+            assert ppo_launches == {"smooth": pcfg.rollout_len,
+                                    "solver": pcfg.rollout_len,
+                                    "euler": 0}, ppo_launches
+    finally:
+        dist.destroy_process_group()
+    res = dict(backend=backend, world_size=world, nsample=nsample,
+               horizon=horizon, sharded_plan_ms=sharded_ms,
+               plain_plan_ms=plain_ms, plan_bitwise=True,
+               plan_launches=plan_launches,
+               ppo=dict(n_envs=pcfg.n_envs, rollout_len=pcfg.rollout_len,
+                        n_minibatch=pcfg.n_minibatch,
+                        n_epochs=pcfg.n_epochs, hidden=pcfg.hidden),
+               dp_ppo_ms=dp_ms, ppo_ms=ppo_ms, ppo_bitwise=True,
+               ppo_loss=float(met["loss"]), ppo_launches=ppo_launches)
+    log("multi_gpu", gpu=gpu, **res)
+    return tuple({"launches_multi_sharded_plan": plan_launches[k],
+                  "launches_multi_dp_ppo": ppo_launches[k]}
+                 for k in ("smooth", "solver"))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4932,6 +5475,9 @@ def main():
     table[0].update(b1_sv)
     table[1].update(b2_sv)
     table[2].update(b3_sv)
+    for rows in (run_host("cuda", gpu=smi), run_multi("cuda", gpu=smi)):
+        table[0].update(rows[0])
+        table[1].update(rows[1])
     log("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": table}))
     print(smi)
@@ -4941,4 +5487,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--short-profile"]:
+        print(json.dumps(short_profile(*json.loads(sys.argv[2]))))
+    else:
+        main()

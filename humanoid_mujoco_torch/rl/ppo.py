@@ -125,15 +125,17 @@ def clip_by_global_norm_(grads, max_norm: float):
     return norm
 
 
-def ppo_train_step_core(cfg: PPOConfig, env_cfg: EnvConfig, base: Model,
-                        state: PPOState, draws: PPODraws):
-    """Collect, then update (see the module docstring). Updates `state`
-    in place; returns (state, metrics), metrics as 0-d tensors."""
-    T, n = cfg.rollout_len, cfg.n_envs
+def ppo_collect(cfg: PPOConfig, env_cfg: EnvConfig, base: Model,
+                state: PPOState, draws: PPODraws):
+    """Roll the state's envs out for cfg.rollout_len steps under the
+    policy: (env state, obs, rollout), the rollout (obs, act, logp, v, r,
+    done, trunc) each (T, B, ...) and the last obs's values (B,). Every
+    env reads only its own row of the draws, so a shard of the envs
+    collects with the same rows of the whole batch's draws."""
     traj = []
     es, obs = state.env_state, state.obs
     with torch.no_grad():
-        for t in range(T):
+        for t in range(cfg.rollout_len):
             # the unclipped sample is stored with its logp (SB3); only
             # the copy sent to the env is clipped
             mean, log_std = state.pi(obs)
@@ -146,21 +148,39 @@ def ppo_train_step_core(cfg: PPOConfig, env_cfg: EnvConfig, base: Model,
                                             trunc, draws.reset[t])
             traj.append((obs, a, logp, v, r, done.to(r.dtype), trunc))
             obs = obs2
-        obs_t, act_t, logp_t, v_t, r_t, done_t, trunc_t = (
-            torch.stack(x) for x in zip(*traj))
-        last_v = state.v(obs)
+        rollout = tuple(torch.stack(x) for x in zip(*traj))
+        rollout += (state.v(obs),)
+    return es, obs, rollout
+
+
+def ppo_update(cfg: PPOConfig, state: PPOState, rollout, perm,
+               part=None, reduce=None):
+    """GAE, advantage normalization and the n_epochs x n_minibatch
+    clipped-surrogate updates of the whole batch's rollout (as
+    `ppo_collect` returns it); updates the networks and the optimizer in
+    place. Returns the metrics, 0-d tensors.
+
+    For a data-parallel step (parallel/distributed.py): `part(idx)`
+    names the rows of minibatch `idx` whose loss this process takes, its
+    loss weighted by their share of the minibatch, and `reduce(x)` sums
+    a tensor over the processes in place (each gradient, and the
+    losses). By default one process takes every row."""
+    obs_t, act_t, logp_t, v_t, r_t, done_t, trunc_t, last_v = rollout
+    with torch.no_grad():
         adv, ret = _gae(r_t, v_t, last_v, done_t, cfg.gamma, cfg.lam)
         adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    N = T * n
+    N = obs_t.shape[0] * obs_t.shape[1]
     batch = tuple(x.reshape((N,) + x.shape[2:])
                   for x in (obs_t, act_t, logp_t, adv, ret))
     half_log_2pie = 0.5 * math.log(2 * math.pi * math.e)
     params = state.params()
     losses = []
     for e in range(cfg.n_epochs):
-        idxs = draws.perm[e].reshape(cfg.n_minibatch, N // cfg.n_minibatch)
+        idxs = perm[e].reshape(cfg.n_minibatch, N // cfg.n_minibatch)
         for idx in idxs:
-            obs_b, act_b, logp_old, adv_b, ret_b = (x[idx] for x in batch)
+            rows = idx if part is None else part(idx)
+            share = rows.numel() / idx.numel()
+            obs_b, act_b, logp_old, adv_b, ret_b = (x[rows] for x in batch)
             mean, log_std = state.pi(obs_b)
             logp = gaussian_logp(mean, log_std, act_b)
             ratio = torch.exp(logp - logp_old)
@@ -169,19 +189,33 @@ def ppo_train_step_core(cfg: PPOConfig, env_cfg: EnvConfig, base: Model,
                 torch.clamp(ratio, 1 - cfg.clip, 1 + cfg.clip) * adv_b))
             v_loss = torch.mean((state.v(obs_b) - ret_b) ** 2)
             ent = torch.mean(torch.sum(log_std + half_log_2pie, dim=-1))
-            loss = pg + cfg.vf_coef * v_loss - cfg.ent_coef * ent
+            loss = (pg + cfg.vf_coef * v_loss - cfg.ent_coef * ent) * share
             state.opt.zero_grad(set_to_none=True)
             loss.backward()
+            if reduce is not None:
+                for p in params:
+                    reduce(p.grad)
             clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
             state.opt.step()
             losses.append(loss.detach())
+    losses = torch.stack(losses)
+    if reduce is not None:
+        reduce(losses)
+    # success: the share of completed episodes that ended by truncation
+    return dict(loss=losses.mean(), mean_reward=r_t.mean(),
+                episode_done_rate=done_t.mean(),
+                success_rate=trunc_t.to(r_t.dtype).sum()
+                / torch.clamp(done_t.sum(), min=1.0))
+
+
+def ppo_train_step_core(cfg: PPOConfig, env_cfg: EnvConfig, base: Model,
+                        state: PPOState, draws: PPODraws):
+    """Collect, then update (see the module docstring). Updates `state`
+    in place; returns (state, metrics), metrics as 0-d tensors."""
+    es, obs, rollout = ppo_collect(cfg, env_cfg, base, state, draws)
+    metrics = ppo_update(cfg, state, rollout, draws.perm)
     state.env_state, state.obs = es, obs
     state.update_count += 1
-    # success: the share of completed episodes that ended by truncation
-    metrics = dict(loss=torch.stack(losses).mean(), mean_reward=r_t.mean(),
-                   episode_done_rate=done_t.mean(),
-                   success_rate=trunc_t.to(r_t.dtype).sum()
-                   / torch.clamp(done_t.sum(), min=1.0))
     return state, metrics
 
 

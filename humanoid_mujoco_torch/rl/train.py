@@ -7,9 +7,18 @@ and saves a complete checkpoint (parameters, optimizer moments, replay
 buffer, env batch, generator state, curriculum, iteration) with
 `torch.save`, so that `--ckpt` resumes exactly.
 
+Under a process group (`parallel.distributed.init_distributed`: the
+HMT_COORDINATOR variables, or torchrun's, as tools/pod_run_torch.sh
+starts it) PPO runs data-parallel: each rank steps its shard of the
+env batch (`dp_sharded_ppo_step`, on its own card), the checkpoint
+holds the whole batch gathered from the ranks, and rank 0 writes the
+files.
+
 Usage:
   python -m humanoid_mujoco_torch.rl.train --algo sac --envs 256 \\
       --steps 1000000 --standup --out runs/sac
+  torchrun --nproc-per-node 4 -m humanoid_mujoco_torch.rl.train \\
+      --algo ppo --envs 1024 --out runs/ppo
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.distributed import (dp_sharded_ppo_step, gather_env_batch,
+                                    init_distributed, shard_env_batch)
 from .curriculum import CurriculumState, curriculum_init, curriculum_update
-from .env import EnvConfig, rl_humanoid_model
+from .env import EnvConfig, env_state_to_dict, rl_humanoid_model
 from .ppo import PPOConfig, ppo_init, ppo_train_step
 from .sac import SACConfig, sac_init, sac_train_step
 
@@ -38,10 +49,19 @@ def push_randomization_factor(state, rf: float):
     return state
 
 
-def _save_ckpt(out, it, state, cur, recent_success):
+def _save_ckpt(out, it, state, cur, recent_success, mesh=None):
+    """Write the checkpoint; under a mesh the env batch is gathered from
+    every rank (a collective) and rank 0 writes."""
     path = os.path.join(out, f"ckpt_{it:07d}.pt")
-    torch.save(dict(state=state.state_dict(), cur=dataclasses.asdict(cur),
-                    iter=it, recent_success=list(recent_success)), path)
+    d = state.state_dict()
+    if mesh is not None:
+        d["env_state"] = env_state_to_dict(
+            gather_env_batch(mesh, state.env_state))
+        d["obs"] = gather_env_batch(mesh, state.obs)
+        if mesh.rank != 0:
+            return path
+    torch.save(dict(state=d, cur=dataclasses.asdict(cur), iter=it,
+                    recent_success=list(recent_success)), path)
     return path
 
 
@@ -64,7 +84,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    mesh = init_distributed(device=args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None and args.algo != "ppo":
+        raise ValueError("data-parallel training runs PPO (--algo ppo)")
     # no TF32 in the networks' products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -85,6 +109,9 @@ def main(argv=None):
         cfg = PPOConfig(n_envs=args.envs)
         state = ppo_init(cfg, env_cfg, base, cur.randomization_factor, gen)
         train_step = ppo_train_step
+        if mesh is not None:
+            def train_step(cfg, env_cfg, base, state):
+                return dp_sharded_ppo_step(mesh, cfg, env_cfg, base, state)
         steps_per_iter = cfg.rollout_len * cfg.n_envs
 
     start_iter = 0
@@ -95,7 +122,11 @@ def main(argv=None):
         cur = CurriculumState(**loaded["cur"])
         start_iter = int(loaded["iter"])
         recent_success = list(loaded["recent_success"])
-        print(f"resumed from {args.ckpt} at iteration {start_iter}")
+        if lead:
+            print(f"resumed from {args.ckpt} at iteration {start_iter}")
+    if mesh is not None:
+        state.env_state = shard_env_batch(mesh, state.env_state)
+        state.obs = shard_env_batch(mesh, state.obs)
 
     n_iters = max(1, args.steps // steps_per_iter)
     log_path = os.path.join(args.out, "train.log.jsonl")
@@ -115,18 +146,20 @@ def main(argv=None):
             rec = dict(iter=it, env_steps=it * steps_per_iter,
                        rand_factor=cur.randomization_factor,
                        wall_s=round(time.time() - t0, 1), **metrics)
-            with open(log_path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
-            with open(progress_path, "w") as f:
-                f.write(f"{100.0 * (it + 1) / n_iters:.2f}")
-            print(rec, flush=True)
+            if lead:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                with open(progress_path, "w") as f:
+                    f.write(f"{100.0 * (it + 1) / n_iters:.2f}")
+                print(rec, flush=True)
             if cur.done:
                 print("curriculum complete: stopping")
                 break
         if it % args.ckpt_every == 0 and it > 0:
-            _save_ckpt(args.out, it, state, cur, recent_success)
-    path = _save_ckpt(args.out, n_iters, state, cur, recent_success)
-    print(f"done in {time.time() - t0:.0f}s")
+            _save_ckpt(args.out, it, state, cur, recent_success, mesh)
+    path = _save_ckpt(args.out, n_iters, state, cur, recent_success, mesh)
+    if lead:
+        print(f"done in {time.time() - t0:.0f}s")
     return state, path
 
 

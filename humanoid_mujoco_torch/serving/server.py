@@ -26,9 +26,16 @@ Run it with
   python -m humanoid_mujoco_torch.serving.server [--planner sampling]
 
 (`--planner` defaults to "ilqg", as in the JAX package; `--device cpu`
-runs the plain PyTorch path). The plan-while-acting mode
-(`async_mode=True`, the native runtime, ROADMAP item 12) is not ported
-yet and raises.
+runs the plain PyTorch path).
+
+With `async_mode=True` (the reference's plan-while-acting architecture,
+agent.cc:318-329) a native plan thread (native/async_agent.py) iterates
+the planner continuously on the agent's device against the freshest
+request state, and each request returns at once the action of the
+latest published policy, evaluated on the CPU: its latency is one
+policy query, not `planner_iterations` plans. The loop starts with the
+first request and stops with `stop()`. It works with `filter="ekf"`
+too: the filter's state is what the plan thread receives.
 """
 
 from __future__ import annotations
@@ -57,10 +64,9 @@ class MPCServer:
                  filter: str = "none"):
         if filter not in ("none", "ekf"):
             raise ValueError(f"unknown filter {filter!r}")
-        if async_mode:
-            raise NotImplementedError(
-                "async_mode (the background plan loop of the native "
-                "runtime) comes with ROADMAP item 12 of the port")
+        self.async_mode = async_mode
+        self._async = None
+        self._t0 = None
         self.filter_mode = filter
         self._filter = None
         self._last_action = None
@@ -72,6 +78,25 @@ class MPCServer:
         self._sock: Optional[socket.socket] = None
         self._stop = threading.Event()
         self.listening = threading.Event()   # set once bound (see port)
+
+    def start_async(self):
+        """Start the background plan loop (idempotent)."""
+        if self._async is None:
+            from ..native.async_agent import AsyncAgent
+            self._async = AsyncAgent(self.agent)
+            self._t0 = time.monotonic()
+            self._async.start()
+        return self._async
+
+    def stop_async(self):
+        """Stop the plan loop; re-raise the exception that ended it."""
+        if self._async is not None:
+            a, self._async = self._async, None
+            a.stop()
+
+    @property
+    def plan_iterations(self) -> int:
+        return self._async.plan_iterations if self._async else 0
 
     def compute_action(self, joint_pos, joint_vel, ang_vel, quat
                        ) -> np.ndarray:
@@ -96,10 +121,18 @@ class MPCServer:
                                         last_ctrl=self._last_action)
         else:
             state = set_robot_state(m, joint_pos, joint_vel, ang_vel, quat)
-        self.agent.state = state
-        for _ in range(self.planner_iterations):
-            self.agent.planner_step()
-        action = self.agent.get_action()
+        if self.async_mode:
+            a = self.start_async()
+            t = time.monotonic() - self._t0
+            qpos, qvel = (x[0].double().cpu().numpy()
+                          for x in (state.qpos, state.qvel))
+            a.set_state(qpos, qvel, t)
+            action = a.get_action(qpos, qvel, t)
+        else:
+            self.agent.state = state
+            for _ in range(self.planner_iterations):
+                self.agent.planner_step()
+            action = self.agent.get_action()
         self._last_action = np.asarray(action)   # the EKF's predict ctrl
         if self.position_mode:
             # the torque command as joint position targets
@@ -169,9 +202,11 @@ class MPCServer:
             self.handle(conn)
 
     def stop(self):
+        """Stop serving and the plan loop (re-raising its failure)."""
         self._stop.set()
         if self._sock is not None:
             self._sock.close()
+        self.stop_async()
 
 
 def serve(planner: str = "ilqg", port: int = DEFAULT_PORT, device=None,

@@ -5,9 +5,8 @@ reference's mjpc/tasks/humanoid/tracking): the 21-DOF humanoid
 (physics/humanoid_upstream.py, dt 0.005) tracks one of ten CMU mocap
 clips, 30 fps marker trajectories of 16 landmarks, chosen by the task's
 mode; the clip is interpolated linearly at the sim time. The clips are
-read with numpy from the data file the JAX package ships,
-humanoid_mujoco_tpu/physics/tracking_motions.npz (a data file, not a
-module; nothing is imported from that package).
+read with numpy from the port's own physics/tracking_motions.npz, a
+byte-for-byte copy of the JAX package's data file.
 
 Residual (141): joint velocities, controls, the marker centroid minus
 the tracking-site centroid, the centered marker minus the centered site
@@ -33,8 +32,7 @@ from .base import Task, TermSpec, make_task
 
 _FPS = 30.0
 MOTIONS_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "humanoid_mujoco_tpu", "physics",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "physics",
     "tracking_motions.npz")
 
 # marker order of tracking.cc's body_names

@@ -12,8 +12,9 @@ checkpoint and opens the result, mirroring visualize_policy.py's loop.
 
 No dependencies beyond the standard library, numpy and the port's
 kinematics; works over SSH port-forwarding, survives being copied
-anywhere (single file). The plan-in-the-loop live surface (the JAX
-package's viz/live.py, `--live`) is not ported yet.
+anywhere (single file). `--live` runs the plan-in-the-loop surface
+instead (viz/live.py: the physics loop on the CPU, the async plan loop
+on `--device`, weight sliders and pushes).
 """
 
 from __future__ import annotations
@@ -217,7 +218,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Interactive policy viewer (rl/visualize_policy.py "
                     "analog): rolls out a checkpoint and serves/exports "
-                    "an orbit-camera playback page.")
+                    "an orbit-camera playback page; --live runs the "
+                    "plan-in-the-loop MPC surface (the mjpc app analog).")
     ap.add_argument("--ckpt", default=None, help="policy checkpoint "
                     "(None = zero-torque rollout)")
     ap.add_argument("--seconds", type=float, default=5.0)
@@ -226,7 +228,23 @@ def main(argv=None):
                     "here instead of serving")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--live", action="store_true",
+                    help="live MPC: physics + async plan loop with "
+                         "weight sliders and pushes (app.cc:209-496)")
+    ap.add_argument("--task", default="Humanoid Cap Stand")
+    ap.add_argument("--planner", default="sampling")
+    ap.add_argument("--nsample", type=int, default=64)
+    ap.add_argument("--hz", type=float, default=50.0)
     a = ap.parse_args(argv)
+
+    if a.live:
+        from .live import LiveSession, serve_live
+        session = LiveSession(task_name=a.task, planner=a.planner,
+                              nsample=a.nsample, control_hz=a.hz,
+                              device=a.device)
+        session.start()
+        serve_live(session, port=a.port)
+        return
 
     from ..rl.videos import record_episode
     m, traj = record_episode(a.ckpt, seconds=a.seconds,

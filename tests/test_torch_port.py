@@ -17,8 +17,11 @@ and box narrowphase, fixed tendons, gravcomp, site actuators, RK4, the
 upstream humanoid, OP3, Panda, PickAndPlace, FreeFingers, the Quadrotor
 and the bimanual Handover), the top-k contact tier (Allegro, Shadow,
 Bimanual Insert and Reorient, Humanoid Interact, Rubik: kernel B2's
-twin with a per-env chain mask), each against the JAX package on the
-same numpy-seeded inputs, and the port's import isolation. This test runs them all. The kernels themselves are checked
+twin with a per-env chain mask), the host surface (the native runtime,
+AsyncAgent, the async server, realtime eval, the live viewer,
+profiling, the gRPC servers) and the multi-GPU paths (the sharded plan
+and the dp PPO step on two gloo ranks), each against the JAX package on
+the same numpy-seeded inputs, and the port's import isolation. This test runs them all. The kernels themselves are checked
 on the card by chip_smoke.py.
 
 One item on purpose: the tier-1 command runs pytest-xdist with
@@ -53,7 +56,12 @@ them one after another. The RL env's process also runs the JAX
 estimation slice's checks that need no JAX reference (the JAX tests'
 scenarios on the port, about a minute), and a freed worker its checks
 against the references, while this process runs the iLQG, task and
-planner-slice checks.
+planner-slice checks. The host checks need no JAX reference (their
+gRPC servers and robot proxies are processes of their own); the
+multi-GPU checks, on the RL slice's PPO reference, run two gloo ranks
+in two more processes (rank 0 compiles the JAX sharded plan), then the
+dry run's two. Both run at the end, once the reference processes have
+exited, so that their memory does not add to the peak.
 """
 
 import multiprocessing
@@ -65,10 +73,12 @@ import test_torch_constraints
 import test_torch_contact
 import test_torch_estimation
 import test_torch_fused_smooth
+import test_torch_host
 import test_torch_ilqg
 import test_torch_import
 import test_torch_math
 import test_torch_model
+import test_torch_parallel
 import test_torch_planners
 import test_torch_rl
 import test_torch_rollout
@@ -150,4 +160,11 @@ def test_port_matches_jax():
         est_local.result()
         est_checks.result()
         swimmer.result()
-    test_torch_swimmer.run_checks()
+    # after the reference processes have exited (their memory with them):
+    # two gloo ranks from a thread while this process runs the rest
+    with ThreadPoolExecutor(max_workers=1) as late:
+        parallel = late.submit(test_torch_parallel.run_checks,
+                               rl_refs["ppo"])
+        test_torch_host.run_checks()
+        test_torch_swimmer.run_checks()
+        parallel.result()

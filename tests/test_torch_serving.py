@@ -30,8 +30,8 @@ value:
 - `MPCServer.handle` over `socket.socketpair()` (timeouts 10 s): the
   round trip against `compute_action` of a twin agent, a malformed
   request's error reply, two coalesced requests, position mode; the
-  async mode raising, an unknown filter's ValueError, the EKF mode
-  accepted (tests/test_torch_estimation.py serves through it);
+  async mode answering a request, an unknown filter's ValueError, the
+  EKF mode accepted (tests/test_torch_estimation.py serves through it);
 - `rl.evaluate.run_episodes`: 2 episodes x 5 steps at randomization
   factors 0 and 1, the policy's parameters carried from flax
   (`params_from_flax`), the reset and step draws from the JAX keys,
@@ -666,8 +666,12 @@ def check_server():
     np.testing.assert_allclose(
         got, np.asarray(o["joint_pos"]) + 0.3 * want[0], rtol=0,
         atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        MPCServer(small_agent(), async_mode=True)
+    # the async mode answers from the plan thread's published policy
+    # (tests/test_torch_host.py holds it further)
+    srv = MPCServer(small_agent(), async_mode=True)
+    got = served(srv, [json.dumps(o).encode()], 1)[0]
+    assert len(got) == 12 and np.all(np.isfinite(got))
+    srv.stop()
     assert MPCServer(small_agent(), filter="ekf").filter_mode == "ekf"
     with pytest.raises(ValueError):
         MPCServer(small_agent(), filter="ukf")
