@@ -23,6 +23,13 @@ the port's three paths:
   large for a block's shared memory; the whole step against the twin
   composition, three 1024-sample x 60-step plans and a 10 x 10 MPC loop
   toward a target with the task's transition on;
+- the golden MuJoCo replay (after the Swimmer): both sequences of
+  tests/fixtures/golden_mujoco.npz (250 steps each, recorded from real
+  MuJoCo) through the humanoid's step at batch 1 in float32 against
+  tests/test_parity.py's bounds, beside the CPU twin's replay; every
+  step's B1 and B2 against the float64 twins on the same input state,
+  exactly 500 launches of each; inverse_dynamics and point_jacobian on
+  the replay's states against their float64 twins (`golden`);
 - the RL slice (B1 with per-env parameter packs + B2): B1 on 4096 envs
   reset at randomization factor 1 against its twin on the same patched
   model, its bitwise repeat, a launch whose per-env leaves all equal the
@@ -182,8 +189,9 @@ the UKF's batch of 73; B1's and B2's launches on the planner slice and
 their time, plain time and bound on its batch-20 wrench steps; B2's
 launches in the Handover plan and its time, plain time and bound on
 its 8191 first-step states at one iteration; B1's and B2's launches on
-the host and multi-GPU phases) and the script's total seconds. The last
-line is {"ok": true, "device": {...}}. Any failed check exits non-zero.
+the golden replay and on the host and multi-GPU phases) and the
+script's total seconds. The last line is {"ok": true, "device":
+{...}}. Any failed check exits non-zero.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -5398,6 +5406,170 @@ def run_multi(device="cuda", gpu="cpu", nsample=PLAN_SAMPLES,
                  for k in ("smooth", "solver"))
 
 
+# the golden MuJoCo replay: tests/fixtures/golden_mujoco.npz, two
+# 250-step trajectories of the cap humanoid recorded from real MuJoCo
+GOLDEN_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures", "golden_mujoco.npz")
+GOLDEN_SEQS = ("zero", "sine")
+
+
+def golden_bounds(g, name, qs):
+    """tests/test_parity.py's bounds against MuJoCo on a replay `qs`
+    (T, nq) of sequence `name`, asserted; returns the errors. Zero
+    control: root height < 0.03, hinges < 0.10, the last height no more
+    than 0.05 under MuJoCo's; sine control: the first 25 steps < 0.25,
+    step 124's height within 0.08."""
+    ref = g[f"{name}_qpos"]
+    err = np.abs(qs - ref)
+    if name == "zero":
+        out = {"root_height": float(err[:, 2].max()),
+               "hinges": float(err[:, 7:].max()),
+               "last_height_drop": float(ref[-1][2] - qs[-1][2])}
+        assert out["root_height"] < 0.03, out
+        assert out["hinges"] < 0.10, out
+        assert qs[-1][2] > ref[-1][2] - 0.05, out
+    else:
+        out = {"first_25": float(err[:25].max()),
+               "height_124": float(abs(qs[124][2] - ref[124][2]))}
+        assert out["first_25"] < 0.25, out
+        assert out["height_124"] < 0.08, out
+    out["max_abs_err"] = float(err.max())
+    return out
+
+
+def golden_replay(m, g, name):
+    """qpos (250, nq) of the port's `step` at batch 1 from the fixture's
+    qpos0 under its control sequence `name`, on m's device and dtype."""
+    from humanoid_mujoco_torch.physics.model import make_state
+    from humanoid_mujoco_torch.physics.step import step
+    s = make_state(m, qpos=torch.as_tensor(g["qpos0"], dtype=m.dtype,
+                                           device=m.device))
+    ctrl = torch.as_tensor(g[f"{name}_ctrl"], dtype=m.dtype, device=m.device)
+    qs = []
+    for k in range(ctrl.shape[0]):
+        s, _ = step(m, s, ctrl[k:k + 1])
+        qs.append(s.qpos[0])
+    return torch.stack(qs).double().cpu().numpy()
+
+
+def golden_kernels_vs_float64(c1, c2, m64):
+    """Each recorded B1 and B2 launch of the replay against its float64
+    twin on the same input state (B1: the float32 state; B2: B1's
+    float32 outputs), within TOL; steps over TOL (B1: a far-slot
+    sentinel flipped) may be at most 0.5% of the steps, and B2's are
+    listed with whether they are knife edges (`b2_knife_envs`)."""
+    from humanoid_mujoco_torch.physics import fused_smooth, fused_solver
+    e1, flips = [], 0
+    for (m, qpos, qvel, ctrl, *rest), kw, out in c1:
+        assert not rest or rest[0] is None, "the replay applies no wrench"
+        ref = fused_smooth.smooth_raw_reference(m64, qpos.double(),
+                                                qvel.double(),
+                                                ctrl.double(), **kw)
+        e, flip = b1_env_errs(out, ref)
+        e1.append(float(e[0]))
+        flips += int(flip.sum())
+    e2, over = [], []
+    for i, (args, kw, out) in enumerate(c2):
+        a64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+               else a for a in args]
+        ref = fused_solver.solve_step_raw_reference(*a64, **kw)
+        e2.append(float(per_env_err(out, ref)[0]))
+        if not e2[-1] <= TOL:
+            over.append({"step": i, "err": e2[-1],
+                         "knife_edge": bool(b2_knife_envs(args, kw)[0])})
+    e1, e2 = np.array(e1), np.array(e2)
+    out = {"steps": len(c1), "tol": TOL,
+           "b1_max_rel_err": float(e1[np.isfinite(e1)].max()),
+           "b1_median_rel_err": float(np.median(e1)),
+           "b1_steps_over_tol": int((~(e1 <= TOL)).sum()),
+           "b1_sentinel_flips": flips,
+           "b2_max_rel_err": float(e2.max()),
+           "b2_median_rel_err": float(np.median(e2)),
+           "b2_steps_over_tol": len(over), "b2_over_tol": over}
+    for k in ("b1_steps_over_tol", "b2_steps_over_tol"):
+        assert out[k] <= int(0.005 * len(c1)), out
+    return out
+
+
+def golden_functions(m, m64, qs, g, seed=13):
+    """engine.inverse_dynamics and engine.point_jacobian on the card's
+    replay states (every 10th, qvel from the recording, numpy-seeded
+    accelerations; five points around four bodies) against their float64
+    twins on the same inputs, within TOL."""
+    from humanoid_mujoco_torch.physics import engine
+    rng = np.random.default_rng(seed)
+    qpos = np.concatenate([qs[n][::10] for n in GOLDEN_SEQS])
+    qvel = np.concatenate([g[f"{n}_qvel"][::10] for n in GOLDEN_SEQS])
+    qacc = rng.standard_normal(qvel.shape)
+    out = {"states": len(qpos)}
+    args = [torch.as_tensor(x) for x in (qpos, qvel, qacc)]
+    tau = engine.inverse_dynamics(m, *(a.to(m.device, m.dtype)
+                                       for a in args))
+    tau64 = engine.inverse_dynamics(m64, *(a.to(m64.device, m64.dtype)
+                                           for a in args))
+    out["inverse_dynamics_rel_err"] = rel_err(tau64, tau)
+    kin = engine.fwd_position(m, args[0].to(m.device, m.dtype))
+    kin64 = engine.fwd_position(m64, args[0].to(m64.device, m64.dtype))
+    errs = []
+    for body in (1, 3, 7, 12):
+        pts = kin64.xpos[:, body, None] + 0.2 * torch.as_tensor(
+            rng.standard_normal((len(qpos), 5, 3)), device=m64.device)
+        errs.append(rel_err(engine.point_jacobian(m64, kin64, body, pts),
+                            engine.point_jacobian(m, kin, body,
+                                                  pts.to(m.dtype))))
+    out["point_jacobian_rel_err"] = max(errs)
+    assert out["inverse_dynamics_rel_err"] <= TOL, out
+    assert out["point_jacobian_rel_err"] <= TOL, out
+    return out
+
+
+def run_golden(device="cuda", gpu="cpu"):
+    """The `golden` phase: both golden MuJoCo sequences replayed through
+    the port's humanoid step at batch 1 in float32 (B1 + B2 on the card)
+    against tests/test_parity.py's bounds, every step's B1 and B2 launch
+    against the float64 twins (`golden_kernels_vs_float64`), exactly 250
+    B1 and 250 B2 launches a sequence, the largest error against MuJoCo
+    beside the CPU twin's replay, and inverse_dynamics and point_jacobian
+    on the replay's states (`golden_functions`). Returns B1's and B2's
+    launches for the kernel table."""
+    from humanoid_mujoco_torch.physics import (fused_smooth, fused_solver,
+                                               humanoid)
+    t0 = time.perf_counter()
+    with np.load(GOLDEN_FIXTURE) as f:
+        g = {k: f[k] for k in f.files}
+    assert [str(a) for a in g["act_names"]] == list(
+        humanoid.ACTUATED_JOINT_ORDER)
+    m = humanoid.build_humanoid(device=device)
+    m64 = humanoid.build_humanoid(dtype=torch.float64, device=device)
+    cpu = humanoid.build_humanoid(device="cpu")
+    qs, out = {}, {}
+    counters_zero()
+    with record((fused_smooth,), "smooth_raw") as r1, \
+            record((fused_solver,), "solve_step_raw") as r2:
+        for name in GOLDEN_SEQS:
+            qs[name] = golden_replay(m, g, name)
+    launches = counters()
+    replay_s = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        n = sum(len(g[f"{k}_ctrl"]) for k in GOLDEN_SEQS)
+        assert launches["smooth"] == n and launches["solver"] == n, launches
+    for name in GOLDEN_SEQS:
+        q_cpu = golden_replay(cpu, g, name)
+        out[name] = {"card": golden_bounds(g, name, qs[name]),
+                     "cpu_twin": golden_bounds(g, name, q_cpu),
+                     "card_vs_cpu_twin_max_abs": float(
+                         np.abs(qs[name] - q_cpu).max()),
+                     "card_vs_cpu_twin_first25_max_abs": float(
+                         np.abs(qs[name] - q_cpu)[:25].max())}
+    kernels = golden_kernels_vs_float64(r1.calls, r2.calls, m64)
+    funcs = golden_functions(m, m64, qs, g)
+    log("golden", gpu=gpu, launches=launches, replay_s=replay_s,
+        wall_s=time.perf_counter() - t0, kernels_vs_float64=kernels,
+        functions=funcs, **out)
+    return ({"launches_golden": launches["smooth"]},
+            {"launches_golden": launches["solver"]})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5453,6 +5625,9 @@ def main():
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     table, b3_rows = run("cuda", gpu=smi)
     table.append(run_swimmer("cuda", gpu=smi, humanoid_b3=b3_rows))
+    b1_golden, b2_golden = run_golden("cuda", gpu=smi)
+    table[0].update(b1_golden)
+    table[1].update(b2_golden)
     b1_rl, b2_rl, ckpt = run_rl("cuda", gpu=smi)
     table[0].update(b1_rl)
     table[1].update(b2_rl)

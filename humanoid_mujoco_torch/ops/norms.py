@@ -82,6 +82,21 @@ _NORM_FNS = {
 }
 
 
+def norm_param_dim(norm_type: int) -> int:
+    """How many parameters the norm takes (its p, q)."""
+    return {
+        NormType.NULL: 0,
+        NormType.QUADRATIC: 0,
+        NormType.L22: 2,
+        NormType.L2: 1,
+        NormType.COSH: 1,
+        NormType.POWER_LOSS: 1,
+        NormType.SMOOTH_ABS: 1,
+        NormType.SMOOTH_ABS2: 2,
+        NormType.RECTIFY: 1,
+    }[NormType(norm_type)]
+
+
 def norm_value(x: torch.Tensor, norm_type: int, p=0.0, q=0.0
                ) -> torch.Tensor:
     """Norm value over the last axis; p, q are floats or 0-d tensors."""

@@ -74,3 +74,11 @@ def spline_sample(times: torch.Tensor, values: torch.Tensor, t,
         return ((2 * s3 - 3 * s2 + 1) * v_lo + (s3 - 2 * s2 + s) * hh * m_lo
                 + (-2 * s3 + 3 * s2) * v_hi + (s3 - s2) * hh * m_hi)
     raise ValueError(f"unknown spline order {order}")
+
+
+def spline_resample(times: torch.Tensor, values: torch.Tensor,
+                    new_times: torch.Tensor,
+                    order: int = SplineOrder.ZERO) -> torch.Tensor:
+    """The spline's values at a new knot grid (a policy shifted to now):
+    spline_sample at `new_times`."""
+    return spline_sample(times, values, new_times, order)

@@ -206,6 +206,38 @@ def rnea_bias(m: Model, kin: Kin, vel: Vel, qvel: torch.Tensor
     return torch.sum(kin.cdof * fsum, dim=-1)
 
 
+def kinetic_energy(M: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+    """0.5 qvelᵀ M qvel per env: M (B, nv, nv), qvel (B, nv) -> (B,)."""
+    return 0.5 * torch.einsum("ni,nij,nj->n", qvel, M, qvel)
+
+
+def inverse_dynamics(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
+                     qacc: torch.Tensor) -> torch.Tensor:
+    """Smooth inverse dynamics (the mj_inverse analog without contacts):
+    the generalized force that gives (qpos, qvel, qacc), tau = M qacc +
+    bias - passive, the passive force with the fluid drag and gravity
+    compensation where the model has them; (B, nv)."""
+    kin = fwd_position(m, qpos)
+    vel = fwd_velocity(m, kin, qvel)
+    M = crb_mass_matrix(m, kin)
+    return ((M @ qacc[..., None])[..., 0] + rnea_bias(m, kin, vel, qvel)
+            - total_passive(m, kin, vel, qpos, qvel))
+
+
+def point_jacobian(m: Model, kin: Kin, body: int, point: torch.Tensor
+                   ) -> torch.Tensor:
+    """Translational Jacobians of world points rigidly on `body`: point
+    (B, ..., 3) -> (B, ..., 3, nv). The body's chain mask is a float
+    tensor before any arithmetic (Structure.body_dof is uint8)."""
+    mask = m.body_dof_t(kin.cdof.dtype)[body]              # (nv,)
+    lead = (1,) * (point.ndim - 2)
+    B, nv = kin.cdof.shape[:2]
+    cdof = kin.cdof.reshape((B,) + lead + (nv, 6))
+    rel = point - kin.anchor.reshape((B,) + lead + (3,))
+    lin = cdof[..., 3:] + pm.cross(cdof[..., :3], rel[..., None, :])
+    return (mask[:, None] * lin).transpose(-1, -2)
+
+
 def actuator_force(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
                    ctrl: torch.Tensor) -> torch.Tensor:
     """Per-actuator forces after gear (B, nu): joint torques of motor
@@ -367,6 +399,18 @@ def fluid_force(m: Model, kin: Kin, vel: Vel) -> torch.Tensor:
     return xfrc_to_qfrc(m, kin, torch.cat([frc_w, trq_w], dim=-1))
 
 
+def total_passive(m: Model, kin: Kin, vel: Vel, qpos: torch.Tensor,
+                  qvel: torch.Tensor) -> torch.Tensor:
+    """The passive force (B, nv): springs and damping, with the fluid drag
+    and gravity compensation where the model has them."""
+    qfrc_passive = passive_force(m, qpos, qvel)
+    if m.struct.fluid_density or m.struct.fluid_viscosity:
+        qfrc_passive = qfrc_passive + fluid_force(m, kin, vel)
+    if m.struct.has_gravcomp:
+        qfrc_passive = qfrc_passive + gravcomp_qfrc(m, kin)
+    return qfrc_passive
+
+
 def xfrc_to_qfrc(m: Model, kin: Kin, xfrc: torch.Tensor) -> torch.Tensor:
     """Per-body world wrenches (B, nbody, 6) [force; torque] at the body
     COM -> generalized forces (B, nv)."""
@@ -389,12 +433,7 @@ def prepare_smooth(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
     M = crb_mass_matrix(m, kin)
     bias = rnea_bias(m, kin, vel, qvel)
     tau = actuation(m, qpos, qvel, ctrl)
-    qfrc_passive = passive_force(m, qpos, qvel)
-    if m.struct.fluid_density or m.struct.fluid_viscosity:
-        qfrc_passive = qfrc_passive + fluid_force(m, kin, vel)
-    if m.struct.has_gravcomp:
-        qfrc_passive = qfrc_passive + gravcomp_qfrc(m, kin)
-    qfrc_smooth = tau + qfrc_passive - bias
+    qfrc_smooth = tau + total_passive(m, kin, vel, qpos, qvel) - bias
     if has_thrust(m):
         qfrc_smooth = qfrc_smooth + thrust_qfrc(m, kin, ctrl)
     if xfrc is not None:

@@ -12,6 +12,12 @@ import torch
 _EPS = 1e-9
 
 
+def quat_id(dtype: torch.dtype = torch.float32,
+            device="cuda") -> torch.Tensor:
+    """The identity quaternion (1, 0, 0, 0)."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q / torch.clamp(n, min=_EPS)
@@ -63,6 +69,34 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4), branch-free:
+    the four Shepperd constructions, the one with the largest pivot
+    taken, then the sign that makes w >= 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    piv = torch.stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                       1 - m00 + m11 - m22, 1 - m00 - m11 + m22], dim=-1)
+    piv = torch.sqrt(torch.clamp(piv, min=_EPS)) * 0.5
+    w0, x1, y2, z3 = piv.unbind(-1)
+    cand = torch.stack([
+        torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0),
+                     (m10 - m01) / (4 * w0)], dim=-1),
+        torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1),
+                     (m02 + m20) / (4 * x1)], dim=-1),
+        torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2,
+                     (m12 + m21) / (4 * y2)], dim=-1),
+        torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3),
+                     (m12 + m21) / (4 * z3), z3], dim=-1),
+    ], dim=-2)                                          # (..., 4, 4)
+    best = torch.argmax(piv, dim=-1)
+    q = torch.gather(cand, -2, best[..., None, None].expand(
+        best.shape + (1, 4)))[..., 0, :]
+    return quat_normalize(
+        q * torch.where(q[..., 0:1] < 0, -1.0, 1.0).to(q.dtype))
 
 
 def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor
@@ -155,3 +189,11 @@ def spatial_inertia(mass: torch.Tensor, inertia_world: torch.Tensor,
 def normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=dim, keepdim=True),
                            min=_EPS)
+
+
+def local_gravity(quat_wxyz: torch.Tensor) -> torch.Tensor:
+    """World -z in the body frame of the quaternions (..., 4): the IMU's
+    gravity direction, (..., 3)."""
+    down = quat_wxyz.new_tensor([0.0, 0.0, -1.0]).expand(
+        quat_wxyz.shape[:-1] + (3,))
+    return quat_rotate_inv(quat_wxyz, down)

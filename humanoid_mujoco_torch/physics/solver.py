@@ -236,6 +236,16 @@ def finish_efc(rows: Rows, qvel: torch.Tensor, Mchol: torch.Tensor) -> Efc:
     return Efc(J=rows.J, aref=aref, D=1.0 / R, pos=rows.pos)
 
 
+def make_efc(m: Model, kin: Kin, qpos: torch.Tensor, qvel: torch.Tensor,
+             contacts, Mchol: torch.Tensor, sel=None) -> Efc:
+    """Finished constraint rows: make_contact_rows (edge-major, over
+    `contacts` and the top-k `sel`) on a model with contact slots, else
+    make_rows (`contacts` unused), then finish_efc."""
+    rows = (make_contact_rows(m, kin, qpos, contacts, sel) if m.ncon
+            else make_rows(m, qpos))
+    return finish_efc(rows, qvel, Mchol)
+
+
 def ls_grid(ls_iter: int, dtype, device) -> torch.Tensor:
     """{0} ∪ logspace(-3, log10 4, ls_iter - 1), the line-search grid."""
     g = np.concatenate([[0.0], np.logspace(-3.0, math.log10(4.0),

@@ -111,6 +111,7 @@ from humanoid_mujoco_torch.planners.sampling import (plan_nominal,
 from humanoid_mujoco_torch.tasks import aloha as taloha
 from humanoid_mujoco_torch.tasks import registry
 
+import test_torch_refs as refs
 import test_torch_rl as trl
 
 torch.set_num_threads(1)
@@ -579,6 +580,11 @@ _BUILD = {
                       _derivs("Bimanual Handover")},
 }
 NAMES = tuple(_BUILD)
+# the models each reference process builds
+_MODELS = {"light": PLAIN + ("primitives", "Bimanual Handover"),
+           "humanoid": ("Humanoid Stand", "Humanoid Track"),
+           "op3": ("OP3", "Humanoid Stand"),
+           "aloha": ("Bimanual Handover",)}
 _RESULTS = {}
 # XLA's CPU fusion recomputes a deep kinematic chain's shared terms in
 # every consumer (the Panda's 10-deep chain: 0.4 s a forward kinematics
@@ -595,6 +601,17 @@ def reference(name: str):
                                    + XLA_FLAGS).strip()
         _RESULTS[name] = _BUILD[name]()
     return _RESULTS[name]
+
+
+def mass_matrices(name):
+    """Mass matrices of reference `name`'s models at their `start`
+    states, for the loop-form Cholesky check (tests/test_torch_refs.py)."""
+    out = []
+    for n in _MODELS[name]:
+        qpos, qvel, ctrl = start(n, n=1)
+        out.append((n, *refs.port_mass_matrix(port_model(n), qpos[0],
+                                              qvel[0], ctrl[0])))
+    return out
 
 
 def _merged(references):

@@ -95,6 +95,7 @@ from humanoid_mujoco_torch.serving import FilterService, MPCServer, \
     ServingFilter
 from humanoid_mujoco_torch.tasks import registry, stand_task
 
+import test_torch_refs as refs
 import test_torch_rl as trl
 
 torch.set_num_threads(1)
@@ -497,6 +498,18 @@ def reference(name: str):
     if name not in _RESULTS:
         _RESULTS[name] = {k: _KINDS[k]() for k in _GROUPS[name]}
     return _RESULTS[name]
+
+
+def mass_matrices(name):
+    """Mass matrices of group `name`'s models (the humanoid at its stand
+    pose; ParticleFixed where the group builds it), for the loop-form
+    Cholesky check (tests/test_torch_refs.py)."""
+    out = [refs.at_rest("humanoid", tm64(), th.stand_qpos(tm64()).numpy())]
+    if name in ("filters", "residuals"):
+        pm = registry.task_model("ParticleFixed", dtype=F64, device="cpu")
+        out.append(refs.at_rest("ParticleFixed", pm, registry.home_qpos(
+            "ParticleFixed", pm).numpy()))
+    return out
 
 
 def all_references():

@@ -89,6 +89,7 @@ from humanoid_mujoco_torch.planners import ilqg as tilqg
 from humanoid_mujoco_torch.tasks import stand_task
 from humanoid_mujoco_torch.tasks.base import TermSpec, make_task
 
+import test_torch_refs as refs
 import test_torch_rl as trl
 
 torch.set_num_threads(1)
@@ -303,6 +304,12 @@ def reference(name: str):
     if name not in _RESULTS:
         _RESULTS[name] = _BUILD[name]() if name in _BUILD else _jax_ops()
     return _RESULTS[name]
+
+
+def mass_matrices(name):
+    """The humanoid's mass matrix at its stand pose, for the loop-form
+    Cholesky check (tests/test_torch_refs.py)."""
+    return [refs.at_rest("humanoid", tm64(), th.stand_qpos(tm64()).numpy())]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,11 @@
 """The port stands alone: no module of humanoid_mujoco_torch, and not
-chip_smoke.py, imports JAX or the JAX package. tests/test_torch_port.py
-runs these checks as the port's one collected test."""
+chip_smoke.py, imports JAX or the JAX package. The port modules that
+the parity suite's own helpers and its one collected test import
+(tests/test_torch_golden.py, tests/test_torch_refs.py and
+tests/test_torch_port.py) are among those a fresh interpreter loads
+with no JAX, and the collected test's bare-name imports of its sibling
+modules resolve to files of tests/. tests/test_torch_port.py runs these
+checks as the port's one collected test."""
 
 import ast
 import json
@@ -15,6 +20,26 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "humanoid_mujoco_tpu")
+
+
+TESTS = Path(__file__).resolve().parent
+PORT_TEST = TESTS / "test_torch_port.py"
+HELPERS = (TESTS / "test_torch_golden.py", TESTS / "test_torch_refs.py",
+           PORT_TEST)
+
+
+def imported_modules(path):
+    """The absolute module names `path` imports (for `from a import b`,
+    both a and a.b: b may be a module)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module or "")
+            mods.update(f"{node.module}.{a.name}" for a in node.names)
+    return mods
 
 
 def port_sources():
@@ -78,6 +103,7 @@ print(json.dumps([names, bad]))
                 "parallel.dryrun"):
         assert f"humanoid_mujoco_torch.{mod}" in names, mod
     assert bad == [], bad
+    return names
 
 
 def check_no_source_file_imports_jax():
@@ -94,6 +120,26 @@ def check_no_source_file_imports_jax():
                 assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
 
 
+def check_test_helpers_import_isolated_modules(names):
+    """Every humanoid_mujoco_torch module the helpers import is one the
+    fresh interpreter loaded with no JAX (`names`, the package's own
+    modules; a name imported from a module that is not itself a module
+    counts by its module); the collected test's sibling imports are
+    files of tests/."""
+    loaded = set(names) | {"humanoid_mujoco_torch"}
+    for path in HELPERS:
+        assert path.exists(), path
+        mods = imported_modules(path)
+        for mod in sorted(m for m in mods
+                          if m.split(".")[0] == "humanoid_mujoco_torch"):
+            assert mod in loaded or mod.rsplit(".", 1)[0] in loaded, \
+                (path.name, mod)
+    for mod in imported_modules(PORT_TEST):
+        if mod.startswith("test_torch_"):
+            assert (TESTS / f"{mod}.py").exists(), mod
+
+
 def run_checks():
     check_no_source_file_imports_jax()
-    check_importing_the_port_loads_no_jax()
+    names = check_importing_the_port_loads_no_jax()
+    check_test_helpers_import_isolated_modules(names)

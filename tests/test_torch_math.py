@@ -66,6 +66,29 @@ def check_quaternion_ops(dtype):
         assert rel_err(r, o) < tol, i
 
 
+def check_rotations_and_gravity(dtype):
+    """quat_id, mat_to_quat (random rotations: each of its four pivots
+    is the largest for some) and local_gravity."""
+    npd, td, tol = dtype
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((64, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    qj, qt = both(q, npd, td)
+    R = np.asarray(jm.quat_to_mat(qj), np.float64)
+    d0, d1, d2 = R[:, 0, 0], R[:, 1, 1], R[:, 2, 2]
+    piv = np.stack([1 + d0 + d1 + d2, 1 + d0 - d1 - d2, 1 - d0 + d1 - d2,
+                    1 - d0 - d1 + d2], axis=-1)
+    assert set(np.argmax(piv, axis=-1).tolist()) == {0, 1, 2, 3}
+    ref = jax.jit(lambda a: (jm.mat_to_quat(jm.quat_to_mat(a)),
+                             jm.local_gravity(a)))(qj)
+    out = (tm.mat_to_quat(tm.quat_to_mat(qt)), tm.local_gravity(qt))
+    for i, (r, o) in enumerate(zip(ref, out)):
+        assert rel_err(r, o) < tol, i
+    ident = tm.quat_id(td, device="cpu")
+    assert ident.dtype == td and ident.device.type == "cpu"
+    assert rel_err(jm.quat_id(npd), ident) == 0.0
+
+
 def check_spatial_ops(dtype):
     npd, td, tol = dtype
     rng = np.random.default_rng(1)
@@ -139,6 +162,20 @@ def check_spline(order):
     assert rel_err(ref_b, out_b) < 1e-12
 
 
+def check_spline_resample(order):
+    """The spline at a new knot grid (a policy shifted to now)."""
+    rng = np.random.default_rng(6)
+    times = np.sort(rng.uniform(0.0, 1.0, 6))
+    values = rng.standard_normal((6, 3))
+    for new_times in (times + 0.13, np.linspace(-0.1, 1.1, 9)):
+        ref = jspline.spline_resample(jnp.asarray(times), jnp.asarray(values),
+                                      jnp.asarray(new_times), int(order))
+        out = tspline.spline_resample(torch.tensor(times),
+                                      torch.tensor(values),
+                                      torch.tensor(new_times), order)
+        assert rel_err(ref, out) < 1e-12, order
+
+
 def check_norm_value(norm):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((6, 5))
@@ -154,10 +191,15 @@ def check_norm_value(norm):
 def run_checks():
     for dtype in DTYPES.values():
         check_quaternion_ops(dtype)
+        check_rotations_and_gravity(dtype)
         check_spatial_ops(dtype)
         check_linalg(dtype)
     check_cholesky_clamps_the_pivot()
     for order in tspline.SplineOrder:
         check_spline(order)
+    for order in tspline.SplineOrder:
+        check_spline_resample(order)
     for norm in tnorms.NormType:
         check_norm_value(norm)
+        assert tnorms.norm_param_dim(norm) == jnorms.norm_param_dim(
+            int(norm)), norm

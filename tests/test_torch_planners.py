@@ -116,6 +116,7 @@ from humanoid_mujoco_torch.viz import render as trender
 from humanoid_mujoco_torch.viz import viewer as tviewer
 
 import test_torch_ilqg as tilqg_test
+import test_torch_refs as refs
 import test_torch_rl as trl
 
 torch.set_num_threads(1)
@@ -381,6 +382,16 @@ def reference(name: str):
 @functools.lru_cache(maxsize=None)
 def tm64():
     return th.build_humanoid(dtype=F64, device="cpu")
+
+
+def mass_matrices(name):
+    """Mass matrices of reference `name`'s model (the humanoid at its
+    stand pose, or the pendulum), for the loop-form Cholesky check
+    (tests/test_torch_refs.py)."""
+    if name == "light":
+        m = tilqg_test.pendulum_model(dt=0.05)
+        return [refs.at_rest("pendulum", m, np.array([0.3]))]
+    return [refs.at_rest("humanoid", tm64(), th.stand_qpos(tm64()).numpy())]
 
 
 class premise:

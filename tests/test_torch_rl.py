@@ -79,6 +79,8 @@ from humanoid_mujoco_torch.rl import sac as tsac
 from humanoid_mujoco_torch.rl import train as ttrain
 from humanoid_mujoco_torch.rl.networks import params_from_flax
 
+import test_torch_refs as refs
+
 torch.set_num_threads(1)
 # tests/conftest.py sets this too; the references also run in processes
 # of their own (tests/test_torch_port.py), which do not import conftest
@@ -370,6 +372,13 @@ def reference(name: str):
         with kernel_path():
             _RESULTS[name] = _BUILD[name]()
     return _RESULTS[name]
+
+
+def mass_matrices(name):
+    """The RL env's float64 humanoid at its stand pose, for the
+    loop-form Cholesky check (tests/test_torch_refs.py)."""
+    m = base_f64()
+    return [refs.at_rest(name, m, th.stand_qpos(m).numpy())]
 
 
 def jax_env():

@@ -107,6 +107,7 @@ from humanoid_mujoco_torch.serving import (MPCServer, find_ideal_root_height,
                                            set_robot_state)
 from humanoid_mujoco_torch.tasks import home_qpos, stand_task, task_model
 
+import test_torch_refs as refs
 import test_torch_rl as trl
 
 torch.set_num_threads(1)
@@ -373,6 +374,14 @@ def reference(name: str):
         with trl.kernel_path():
             _RESULTS[name] = _BUILD[name]()
     return _RESULTS[name]
+
+
+def mass_matrices(name):
+    """Mass matrices of reference `name`'s model (the RL env's humanoid
+    for evaluate, else the humanoid), at the stand pose, for the
+    loop-form Cholesky check (tests/test_torch_refs.py)."""
+    m = trl.base_f64() if name == "evaluate" else tm64()
+    return [refs.at_rest(name, m, th.stand_qpos(m).numpy())]
 
 
 # ---------------------------------------------------------------------------

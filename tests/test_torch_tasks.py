@@ -69,6 +69,7 @@ from humanoid_mujoco_torch.tasks import base, registry
 from humanoid_mujoco_torch.tasks import quadruped as tquad
 from humanoid_mujoco_torch.tasks import quadruped_hill as thill
 
+import test_torch_refs as refs
 import test_torch_rl as trl
 
 torch.set_num_threads(1)
@@ -230,6 +231,14 @@ def reference(name: str):
         _RESULTS[name] = {job: _KINDS[job[0]](job[1])
                           for job in _GROUPS[name]}
     return _RESULTS[name]
+
+
+def mass_matrices(name):
+    """Mass matrices of group `name`'s models at home, for the loop-form
+    Cholesky check (tests/test_torch_refs.py)."""
+    models = sorted({model for _, model in _GROUPS[name]})
+    return [refs.at_rest(n, port_model(n), registry.home_qpos(
+        n, port_model(n)).numpy()) for n in models]
 
 
 def all_references():

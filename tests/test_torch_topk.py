@@ -37,8 +37,9 @@ tests/test_torch_contact.py's compile helpers (XLA optimization level
 0, its fusion pass off). In that process the JAX package's Cholesky
 factor and solve (`ops/linalg.py`, unrolled element by element at
 trace time: Rubik's nv-36 step took ~460 s to compile) run as loops
-over columns and rows with the same formulas (`_loop_linalg`), held to
-the unrolled forms at 1e-13 on each model's mass matrix first.
+over columns and rows in the package's order of operations
+(tests/test_torch_refs.py's `loop_linalg`), held to the unrolled forms
+at 1e-13 on each model's mass matrix first.
 """
 
 import dataclasses
@@ -71,12 +72,14 @@ from humanoid_mujoco_torch.tasks import interact as tinteract
 from humanoid_mujoco_torch.tasks import registry
 
 import test_torch_contact as tc
+import test_torch_refs as refs
 
 torch.set_num_threads(1)
 jax.config.update("jax_enable_x64", True)
 
 F64 = torch.float64
 t64, tree_np, rel = tc.t64, tc.tree_np, tc.rel
+XLA_FLAGS = tc.XLA_FLAGS
 NAMES = ("Allegro", "Shadow", "Bimanual Insert", "Bimanual Reorient",
          "Humanoid Interact", "Rubik")
 N, STEPS, PROBE = 2, 10, 5
@@ -239,98 +242,29 @@ def _model_ref(name):
     return out
 
 
-def _chol_factor_loop(A):
-    """The JAX package's `linalg.chol_factor` as a loop over columns:
-    the same pivot clamp and column formula, s_i = a_ij - sum_k<j L_ik
-    L_jk, L_ij = s_i (1 / L_jj), the sums as dot products. The package's
-    form unrolls every element at trace time (~nv³/6 scalar ops a
-    factorization, so Rubik's nv-36 step took ~460 s to compile)."""
-    from jax import lax
-    from humanoid_mujoco_tpu.ops import linalg as jlinalg
-    n = A.shape[-1]
-    idx = jnp.arange(n)
-
-    def body(j, L):
-        left = (idx < j).astype(A.dtype)
-        s = A[..., :, j] - jnp.einsum("...ik,...k->...i", L * left,
-                                      L[..., j, :] * left)
-        d = jnp.sqrt(jnp.maximum(s[..., j], jlinalg._JITTER))
-        col = jnp.where(idx == j, d[..., None], s * (1.0 / d)[..., None])
-        return L.at[..., :, j].set(jnp.where(idx < j, 0.0, col))
-    return lax.fori_loop(0, n, body, jnp.zeros_like(A))
-
-
-def _chol_solve_loop(L, b):
-    """The package's `linalg.chol_solve` as two loops over rows (forward
-    and backward substitution, the same divisions)."""
-    from jax import lax
-    n = L.shape[-1]
-    vec = b.ndim == L.ndim - 1
-    bb = b[..., None] if vec else b
-    idx = jnp.arange(n)
-
-    def fwd(i, y):
-        s = bb[..., i, :] - jnp.einsum(
-            "...k,...km->...m", L[..., i, :] * (idx < i), y)
-        return y.at[..., i, :].set(s / L[..., i, i, None])
-    y = lax.fori_loop(0, n, fwd, jnp.zeros_like(bb))
-
-    def bwd(t, x):
-        i = n - 1 - t
-        s = y[..., i, :] - jnp.einsum(
-            "...k,...km->...m", L[..., :, i] * (idx > i), x)
-        return x.at[..., i, :].set(s / L[..., i, i, None])
-    x = lax.fori_loop(0, n, bwd, jnp.zeros_like(bb))
-    return x[..., 0] if vec else x
-
-
-def _loop_linalg():
-    """Route the JAX package's Cholesky and solve to the loop forms in
-    this process (its modules call them as `linalg.chol_factor` and
-    `linalg.chol_solve`); returns the unrolled originals."""
-    from humanoid_mujoco_tpu.ops import linalg as jlinalg
-    saved = (jlinalg.chol_factor, jlinalg.chol_solve)
-    jlinalg.chol_factor = _chol_factor_loop
-    jlinalg.chol_solve = _chol_solve_loop
-    return saved
-
-
-def _loop_linalg_check(saved):
-    """The loop forms against the package's unrolled ones (eagerly) on
-    each model's mass matrices and an SPD matrix at nv 36: 1e-13."""
-    factor, solve = saved
-    rng = np.random.default_rng(11)
-    out = {}
-    for name in NAMES:
-        m = tc.port_model(name)
-        qpos, qvel, ctrl = tc.start(name, n=1)
-        _, _, M, qf = tengine.prepare_smooth(m, t64(qpos), t64(qvel),
-                                             t64(ctrl))
-        A = jnp.asarray(M[0].numpy())
-        b = jnp.asarray(np.stack([qf[0].numpy(),
-                                  rng.standard_normal(m.nv)], axis=-1))
-        with jax.disable_jit():
-            L0, L1 = factor(A), _chol_factor_loop(A)
-            x0, x1 = solve(L0, b), _chol_solve_loop(L1, b)
-        out[name] = (float(np.abs(np.asarray(L0 - L1)).max()
-                           / np.abs(np.asarray(L0)).max()),
-                     float(np.abs(np.asarray(x0 - x1)).max()
-                           / np.abs(np.asarray(x0)).max()))
+def mass_matrices(name=None):
+    """Each model's mass matrix at its `start` state, for the loop-form
+    Cholesky check (tests/test_torch_refs.py)."""
+    out = []
+    for n in NAMES:
+        qpos, qvel, ctrl = tc.start(n, n=1)
+        out.append((n, *refs.port_mass_matrix(tc.port_model(n), qpos[0],
+                                              qvel[0], ctrl[0])))
     return out
 
 
 _RESULT = {}
 
 
-def reference():
+def reference(name=None):
     """The JAX reference of the six models, built once per process (with
     the package's Cholesky and solve in their loop forms, checked
-    against the unrolled ones)."""
+    against the unrolled ones); `name` is unused (one reference)."""
     if not _RESULT:
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
                                    + tc.XLA_FLAGS).strip()
-        saved = _loop_linalg()
-        _RESULT["linalg"] = _loop_linalg_check(saved)
+        saved = refs.loop_linalg()
+        _RESULT["linalg"] = refs.loop_linalg_errors(saved, mass_matrices())
         _RESULT.update({n: _model_ref(n) for n in NAMES})
     return _RESULT
 
@@ -519,14 +453,14 @@ def check_transitions(name, ref):
 
 
 def run_reference_checks(reference_result=None):
-    refs = reference_result if reference_result else reference()
-    for name, errs in refs["linalg"].items():
+    ref = reference_result if reference_result else reference()
+    for name, errs in ref["linalg"].items():
         assert max(errs) < 1e-13, (name, errs)
     loaded = {}
     for name in NAMES:
-        check_probe(name, refs[name])
-        loaded[name] = check_steps(name, refs[name])
-        check_transitions(name, refs[name])
+        check_probe(name, ref[name])
+        loaded[name] = check_steps(name, ref[name])
+        check_transitions(name, ref[name])
     print("top-k tier: most loaded slots of an env, and (env, step) pairs "
           "with more penetrating slots than k:", loaded)
 
